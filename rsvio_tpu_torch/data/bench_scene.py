@@ -1,0 +1,108 @@
+"""The benchmark scene, rendered without OpenCV.
+
+The same geometry as the JAX package's ``bench.py``: a textured plane 5 m in
+front of a pinhole stereo rig (fx = fy = 458, principal point at the image
+center, 0.11 m baseline, no distortion) translating along x by 0.03 m per
+frame, at the EuRoC shape 752x480. Ground truth is known: the pose after
+frame k is x = 0.03 k.
+
+The multi-scale texture is a sum of bicubic upscales of uniform noise
+(``torch.nn.functional.interpolate``, on the CPU); frames are a bilinear
+remap of it with reflected borders. It does not match the OpenCV render
+pixel for pixel, but it is the same kind of scene.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+H, W = 480, 752
+FX = FY = 458.0
+CX, CY = W / 2, H / 2
+BASELINE_M = 0.11
+PLANE_Z = 5.0
+STEP_M = 0.03
+TEX_SIZE = 3072
+TEX_SCALE = 120.0     # texture pixels per metre on the plane
+TEX_OFFSET = 1300.0   # texture pixel of the plane's origin
+OCTAVES = ((90.0, 96), (60.0, 384), (40.0, 1024))   # (weight, noise size)
+
+
+def make_texture(seed: int = 0, size: int = TEX_SIZE,
+                 octaves=OCTAVES) -> torch.Tensor:
+    """(size, size) float32 texture on the CPU: sum of weighted bicubic
+    upscales of uniform noise, plus 40."""
+    rng = np.random.default_rng(seed)
+    tex = torch.full((size, size), 40.0)
+    for w, n in octaves:
+        noise = torch.from_numpy(rng.uniform(0, 1, (n, n)).astype(np.float32))
+        up = F.interpolate(noise[None, None], size=(size, size),
+                           mode="bicubic", align_corners=False)[0, 0]
+        tex += w * up
+    return tex
+
+
+def _reflect(i, n: int):
+    """Index reflection with the edge pixel repeated, OpenCV's
+    BORDER_REFLECT: fedcba|abcdef|fedcba."""
+    period = 2 * n
+    i = torch.remainder(i, period)
+    return torch.where(i >= n, period - 1 - i, i)
+
+
+def remap_bilinear(tex, mx, my):
+    """Bilinear sample of tex (Ht, Wt) at float maps mx, my (H, W), borders
+    reflected."""
+    Ht, Wt = tex.shape
+    x0 = torch.floor(mx)
+    y0 = torch.floor(my)
+    fx = mx - x0
+    fy = my - y0
+    x0 = x0.to(torch.int64)
+    y0 = y0.to(torch.int64)
+    xa, xb = _reflect(x0, Wt), _reflect(x0 + 1, Wt)
+    ya, yb = _reflect(y0, Ht), _reflect(y0 + 1, Ht)
+    top = tex[ya, xa] * (1 - fx) + tex[ya, xb] * fx
+    bot = tex[yb, xa] * (1 - fx) + tex[yb, xb] * fx
+    return top * (1 - fy) + bot * fy
+
+
+def render(tex, cam_x: float, cam_y: float = 0.0, shape=(H, W),
+           fx: float = FX, plane_z: float = PLANE_Z,
+           scale: float = TEX_SCALE, offset: float = TEX_OFFSET):
+    """(H, W) float32 image of the plane seen by a camera at (cam_x, cam_y),
+    on tex's device."""
+    h, w = shape
+    dev = tex.device
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    x = (u - w / 2) / fx
+    y = (v - h / 2) / fx
+    mx = (x * plane_z + cam_x) * scale + offset
+    my = (y * plane_z + cam_y) * scale + offset
+    return remap_bilinear(tex, mx, my)
+
+
+def stereo_frames(tex, n_frames: int, step_m: float = STEP_M,
+                  baseline_m: float = BASELINE_M, **kw):
+    """List of (left, right) frames for frames 0..n_frames-1."""
+    return [(render(tex, step_m * k, **kw),
+             render(tex, step_m * k + baseline_m, **kw))
+            for k in range(n_frames)]
+
+
+def make_rig(device="cpu", shape=(H, W), fx: float = FX,
+             baseline_m: float = BASELINE_M):
+    """The scene's stereo rig as the port's CameraRig."""
+    from ..models.estimator import make_rig as _make_rig
+    from ..ops import cameras
+
+    h, w = shape
+    params = cameras.pack_params(cameras.PINHOLE_RADTAN,
+                                 [fx, fx, w / 2, h / 2], [0, 0, 0, 0],
+                                 device=device)
+    T_r = torch.eye(4, device=device)
+    T_r[0, 3] = baseline_m
+    return _make_rig(params, params.clone(), torch.eye(4, device=device), T_r)

@@ -1,0 +1,319 @@
+"""Sliding-window bundle adjustment: Levenberg-Marquardt with a Schur
+complement over landmark blocks.
+
+Port of ``solve_ba`` and its pieces from rsvio_tpu/models/ba.py: the dense
+masked observation tensor obs (W, 2, L, 2) + mask (W, 2, L), one batched
+linearization, einsum normal-equation blocks, closed-form 3x3 landmark
+inverses, a Cholesky solve of the reduced camera system with pose 0
+gauge-fixed, and LM accept/reject with rollback. ``solve_ba_marginalized``
+and observation weights are not ported yet (ROADMAP A13).
+
+Two deliberate differences of form, same results:
+  * The JAX ``lax.while_loop`` with early exit becomes a fixed-trip loop of
+    ``max_iterations`` iterations that freezes the whole carry once ``done``
+    is set: no host sync inside the solve.
+  * ``jax.scipy.linalg.cho_factor`` yields NaNs for a matrix that is not
+    positive definite, which the step's finiteness check turns into a
+    rejected step. ``torch.linalg.cholesky`` would raise instead, so this
+    uses ``cholesky_ex`` and maps ``info != 0`` to NaN.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops import lie
+from ..ops.projection import linearize_projection
+
+STATUS_MAX_ITERATIONS = 0
+STATUS_COST_TOL = 1
+STATUS_PARAM_TOL = 2
+STATUS_FAILED = 3
+STATUS_SKIPPED = 4
+STATUS_TRUST_REGION = 5
+
+N_METRIC_COLS = 6
+METRIC_NAMES = ("cost", "gradient_norm", "lambda", "step_norm",
+                "step_quality", "accepted")
+
+
+class BAConfig(NamedTuple):
+    """Same fields and defaults as the JAX BAConfig."""
+    max_iterations: int = 20
+    huber_delta: float = 2.0
+    cost_tol: float = 1e-6
+    param_tol: float = 1e-9
+    lambda_init: float = 1e-4
+    lambda_max: float = 1e8
+    min_residual_blocks: int = 6
+    translation_only: bool = False
+    chi2_gate: float = 0.0
+    chi2_gate_iter: int = 1
+    min_lm_span: int = 1
+
+
+class BAResult(NamedTuple):
+    T_W_B: torch.Tensor      # (W,4,4) optimized poses
+    landmarks: torch.Tensor  # (L,3)
+    success: torch.Tensor    # () bool — on failure the inputs come back
+    status: torch.Tensor     # () int32
+    initial_cost: torch.Tensor
+    final_cost: torch.Tensor
+    iterations: torch.Tensor  # () int32
+    metrics: torch.Tensor = None  # (max_iterations, N_METRIC_COLS)
+
+
+def metrics_row(new_cost, g_norm, lam, step_norm, rho, accept):
+    return torch.stack([new_cost, g_norm, lam, step_norm, rho,
+                        accept.to(new_cost.dtype)])
+
+
+def step_quality(cost, new_cost, pred_red):
+    """Gain ratio rho = actual / predicted cost reduction."""
+    return (cost - new_cost) / torch.clamp(pred_red, min=1e-20)
+
+
+def lm_status(cost_conv, param_conv, lam_overflow):
+    """Shared LM status: cost tol > param tol > trust region > max iters."""
+    def c(v):
+        return torch.full_like(cost_conv, v, dtype=torch.int32)
+    return torch.where(cost_conv, c(STATUS_COST_TOL),
+                       torch.where(param_conv, c(STATUS_PARAM_TOL),
+                                   torch.where(lam_overflow,
+                                               c(STATUS_TRUST_REGION),
+                                               c(STATUS_MAX_ITERATIONS))))
+
+
+def lm_span_gate(lm_active, obs_mask, min_lm_span: int):
+    """Keep a landmark only once its observations span >= min_lm_span
+    window rows."""
+    if min_lm_span > 1:
+        span = obs_mask.any(dim=1).sum(dim=0)
+        lm_active = lm_active & (span >= min_lm_span)
+    return lm_active
+
+
+def stereo_observability_mask(obs_mask, lm_valid):
+    """Valid slot AND seen at least once in BOTH cameras across the
+    window. obs_mask (W,2,L), lm_valid (L,) -> (L,)."""
+    return (lm_valid & obs_mask[:, 0, :].any(dim=0)
+            & obs_mask[:, 1, :].any(dim=0))
+
+
+def _linearize_all(T_B_W, T_C_B, landmarks, obs, mask, delta):
+    """Linearization over (W, 2, L): T_B_W (W,4,4), T_C_B (2,4,4),
+    landmarks (L,3)."""
+    return linearize_projection(T_C_B[None, :, None], T_B_W[:, None, None],
+                                landmarks[None, None], obs, mask, delta)
+
+
+def build_normal_equations(lin):
+    """Block normal equations from a (W,2,L) Linearization: H_pp (W,6,6),
+    H_ll (L,3,3), H_pl (W,L,6,3), g_p (W,6), g_l (L,3)."""
+    Jp, Jl, r = lin.J_pose, lin.J_lm, lin.r
+    H_pp = torch.einsum("wclri,wclrj->wij", Jp, Jp)
+    H_ll = torch.einsum("wclri,wclrj->lij", Jl, Jl)
+    H_pl = torch.einsum("wclri,wclrj->wlij", Jp, Jl)
+    g_p = torch.einsum("wclri,wclr->wi", Jp, r)
+    g_l = torch.einsum("wclri,wclr->li", Jl, r)
+    return H_pp, H_ll, H_pl, g_p, g_l
+
+
+def _inv3x3(M):
+    """Closed-form batched 3x3 inverse by adjugate. Returns (inv, ok)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    det_safe = torch.where(torch.abs(det) > 1e-12, det, torch.ones_like(det))
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), (b * f - c * e)], dim=-1),
+        torch.stack([B, (a * i - c * g), -(a * f - c * d)], dim=-1),
+        torch.stack([C, -(a * h - b * g), (a * e - b * d)], dim=-1),
+    ], dim=-2)
+    return adj / det_safe[..., None, None], torch.abs(det) > 1e-12
+
+
+def _clamped_diag(H):
+    return torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8)
+
+
+def cholesky_solve_or_nan(S, b):
+    """Solve S x = b by Cholesky; NaNs (not an exception) when S is not
+    positive definite, as the JAX reference's cho_factor gives."""
+    Lc, info = torch.linalg.cholesky_ex(S)
+    x = torch.cholesky_solve(b[:, None], Lc)[:, 0]
+    return torch.where(info == 0, x, torch.full_like(x, torch.nan))
+
+
+def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
+    """Damped Schur-complement solve of the BA normal equations, pose 0
+    gauge-fixed. Inactive landmarks get identity blocks and a zero update.
+    Returns (delta_pose (W,6), delta_lm (L,3), ok)."""
+    W = H_pp.shape[0]
+    dtype, dev = H_pp.dtype, H_pp.device
+    dp = _clamped_diag(H_pp)                          # (W,6)
+    H_pp_d = H_pp + lam * torch.diag_embed(dp)
+    dl = _clamped_diag(H_ll)                          # (L,3)
+    H_ll_d = H_ll + lam * torch.diag_embed(dl)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    H_ll_d = torch.where(lm_active[:, None, None], H_ll_d, eye3)
+    g_l = torch.where(lm_active[:, None], g_l, torch.zeros_like(g_l))
+    H_pl = torch.where(lm_active[None, :, None, None], H_pl,
+                       torch.zeros_like(H_pl))
+
+    H_ll_inv, inv_ok = _inv3x3(H_ll_d)
+    A = torch.einsum("wlij,ljk->wlik", H_pl, H_ll_inv)
+    S_blocks = -torch.einsum("wlik,vljk->wvij", A, H_pl)
+    ar = torch.arange(W, device=dev)
+    S_blocks[ar, ar] += H_pp_d
+    b_red = -(g_p - torch.einsum("wlik,lk->wi", A, g_l))     # (W,6)
+    S = S_blocks.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
+    b = b_red.reshape(W * 6)
+    # Gauge fix: identity rows/cols for pose 0, zero rhs -> delta0 = 0.
+    mask = torch.cat([torch.zeros(6, dtype=dtype, device=dev),
+                      torch.ones((W - 1) * 6, dtype=dtype, device=dev)])
+    S = S * mask[:, None] * mask[None, :] + torch.diag(1.0 - mask)
+    b = b * mask
+    delta_p = cholesky_solve_or_nan(S, b).reshape(W, 6)
+    rhs_l = -g_l - torch.einsum("wlij,wi->lj", H_pl, delta_p)
+    delta_l = torch.einsum("lij,lj->li", H_ll_inv, rhs_l)
+    delta_l = torch.where(lm_active[:, None], delta_l,
+                          torch.zeros_like(delta_l))
+    ok = (torch.isfinite(delta_p).all() & torch.isfinite(delta_l).all()
+          & (inv_ok | ~lm_active).all())
+    return delta_p, delta_l, ok
+
+
+def _sel(c, new, old):
+    """where(c, new, old) for a 0-d bool c over tensors or tuples."""
+    if isinstance(new, tuple):
+        return tuple(_sel(c, n, o) for n, o in zip(new, old))
+    return torch.where(c, new, old)
+
+
+def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
+             cfg: BAConfig = BAConfig()) -> BAResult:
+    """Sliding-window bundle adjustment.
+
+    T_W_B (W,4,4) keyframe poses, T_C_B (2,4,4) stereo extrinsics,
+    landmarks (L,3), obs (W,2,L,2) normalized observations, obs_mask
+    (W,2,L), lm_valid (L,). On failure the inputs come back unchanged.
+    """
+    dtype, dev = T_W_B.dtype, T_W_B.device
+    W = T_W_B.shape[0]
+    lm_active0 = lm_span_gate(stereo_observability_mask(obs_mask, lm_valid),
+                              obs_mask, cfg.min_lm_span)
+    mask0 = obs_mask & lm_active0[None, None, :]
+    n_blocks = mask0.sum()
+    n_vars = (W - 1) * 6 + 3 * lm_active0.sum()
+    attempt = (n_blocks >= cfg.min_residual_blocks) & (n_blocks * 2 >= n_vars)
+
+    T_B_W0 = lie.se3_inverse(T_W_B)
+
+    def lin_sys(T_B_W, lms, mask):
+        lin = _linearize_all(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)
+        r_sq = (lin.r ** 2).sum(-1)
+        return build_normal_equations(lin), lin.cost.sum(), r_sq
+
+    sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0)
+
+    T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
+    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
+    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    done = ~attempt
+    status = torch.tensor(STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                          device=dev)
+    metrics = torch.zeros((cfg.max_iterations, N_METRIC_COLS), dtype=dtype,
+                          device=dev)
+    mask, lm_active = mask0, lm_active0
+    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+
+    # Fixed trip count; an iteration after `done` leaves the carry as it was.
+    for _ in range(cfg.max_iterations):
+        live = ~done
+        H_pp, H_ll, H_pl, g_p, g_l = sys
+        delta_p, delta_l, ok_step = schur_solve(
+            H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active)
+        if cfg.translation_only:
+            delta_p = torch.cat([delta_p[:, :3],
+                                 torch.zeros_like(delta_p[:, 3:])], dim=1)
+        delta_p = torch.where(ok_step, delta_p, zero)
+        delta_l = torch.where(ok_step, delta_l, zero)
+        T_new = lie.se3_retract_split(T_B_W, delta_p)
+        lms_new = lms + delta_l
+        sys_new, new_cost, r_sq_new = lin_sys(T_new, lms_new, mask)
+        accept = ok_step & torch.isfinite(new_cost) & (new_cost < cost)
+
+        mask_n, lm_active_n = mask, lm_active
+        if cfg.chi2_gate > 0.0:
+            # Outlier gate after chi2_gate_iter accepted iterations, with the
+            # same under-constraint guard as the reference (both branches
+            # computed, one selected).
+            do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
+            m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
+            act = stereo_observability_mask(m, lm_valid)
+            m = m & act[None, None, :]
+            n_b = m.sum()
+            guard = ((n_b >= cfg.min_residual_blocks)
+                     & (2 * n_b >= (W - 1) * 6 + 3 * act.sum()))
+            m = torch.where(guard, m, mask)
+            act = torch.where(guard, act, lm_active)
+            sys_g, cost_g, _ = lin_sys(T_new, lms_new, m)
+            mask_n = torch.where(do_gate, m, mask)
+            lm_active_n = torch.where(do_gate, act, lm_active)
+            sys_new = _sel(do_gate, sys_g, sys_new)
+            new_cost = torch.where(do_gate, cost_g, new_cost)
+        n_acc_n = n_acc + accept.to(torch.int32)
+
+        cost_conv = accept & (torch.abs(cost - new_cost)
+                              <= cfg.cost_tol * torch.clamp(cost, min=1e-12))
+        step_norm = torch.sqrt((delta_p ** 2).sum() + (delta_l ** 2).sum())
+        param_conv = accept & (step_norm <= cfg.param_tol)
+        g_l_m = torch.where(lm_active_n[:, None], g_l, zero)
+        g_norm = torch.sqrt((g_p ** 2).sum() + (g_l_m ** 2).sum())
+        d_p = _clamped_diag(H_pp)
+        d_l = _clamped_diag(H_ll)
+        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum()
+                             + (d_l * delta_l ** 2).sum())
+                      - ((g_p * delta_p).sum() + (g_l_m * delta_l).sum()))
+        rho = step_quality(cost, new_cost, pred)
+        row = metrics_row(new_cost, g_norm, lam, step_norm, rho, accept)
+        metrics = torch.where(
+            live & (torch.arange(cfg.max_iterations, device=dev) == it)[:, None],
+            row[None, :], metrics)
+        lam_n = torch.where(accept, torch.clamp(lam * 0.33, min=1e-12),
+                            lam * 4.0)
+        hard_fail = lam_n > cfg.lambda_max
+
+        acc_live = accept & live
+        T_B_W = torch.where(acc_live, T_new, T_B_W)
+        lms = torch.where(acc_live, lms_new, lms)
+        sys = _sel(acc_live, sys_new, sys)
+        cost = torch.where(acc_live, new_cost, cost)
+        lam = torch.where(live, lam_n, lam)
+        mask = torch.where(live, mask_n, mask)
+        lm_active = torch.where(live, lm_active_n, lm_active)
+        n_acc = torch.where(live, n_acc_n, n_acc)
+        status = torch.where(live, lm_status(cost_conv, param_conv, hard_fail),
+                             status)
+        it = it + live.to(torch.int32)
+        done = done | (live & (cost_conv | param_conv | hard_fail))
+
+    status = torch.where(attempt, status, torch.full_like(status,
+                                                          STATUS_SKIPPED))
+    finite = (torch.isfinite(T_B_W).all()
+              & torch.isfinite(torch.where(lm_active[:, None], lms,
+                                           zero)).all())
+    success = attempt & (status != STATUS_FAILED) & finite
+    T_W_B_out = torch.where(success, lie.se3_inverse(T_B_W), T_W_B)
+    lms_out = torch.where(success, lms, landmarks)
+    return BAResult(T_W_B=T_W_B_out, landmarks=lms_out, success=success,
+                    status=status, initial_cost=cost0, final_cost=cost,
+                    iterations=it, metrics=metrics)

@@ -1,0 +1,252 @@
+"""The port's stereo VO slice as a whole against the JAX package.
+
+Setup: the ``__graft_entry__._tiny_setup`` scene and configuration (96x128,
+32 slots, 3 levels, 8 KLT iterations, window 4; built here without the
+compile cache that helper enables) driven by the rolling-image stereo
+sequence of ``dryrun_multichip`` (left image rolled k px, right k+4 px). The
+JAX step uses its Pallas KLT kernel in interpret mode
+(``KLTConfig(backend="pallas")``); the port uses the plain PyTorch version of
+its KLT kernel. Both run on the CPU in float32.
+
+Tolerances:
+  * per frame over the sequence: keyframe / PnP / BA flags and the track,
+    landmark and occupancy counts equal; T_W_B within 1e-3 m and 1e-3 rad.
+    The steps differ only in the order of fp32 sums (measured pose gap
+    ~3e-6 over 12 frames); 1e-3 leaves room for that to compound.
+  * one step from a converted JAX state: integer and boolean fields equal,
+    float fields within 1e-4 (one step cannot compound).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rsvio_tpu.models import ba as jba
+from rsvio_tpu.models import estimator as jest
+from rsvio_tpu.models import frontend as jfe
+from rsvio_tpu.models import pnp as jpnp
+from rsvio_tpu.ops import cameras as jcam
+from rsvio_tpu.ops import klt as jklt
+from rsvio_tpu_torch.models import ba as tba
+from rsvio_tpu_torch.models import estimator as test_
+from rsvio_tpu_torch.models import frontend as tfe
+from rsvio_tpu_torch.models import pnp as tpnp
+from rsvio_tpu_torch.ops import klt as tklt
+from rsvio_tpu_torch.utils import convert
+
+torch.set_num_threads(2)
+
+H, W = 96, 128
+N_FRAMES = 10
+POSE_TOL = 1e-3
+STEP_TOL = 1e-4
+
+
+def _jax_cfg():
+    return jest.EstimatorConfig(
+        frontend=jfe.FrontendConfig(
+            capacity=32, cell_size=24, detect_margin=10,
+            klt=jklt.KLTConfig(levels=3, max_iterations=8, backend="pallas")),
+        window_size=4, image_shape=(H, W))
+
+
+def _torch_cfg():
+    return test_.EstimatorConfig(
+        frontend=tfe.FrontendConfig(
+            capacity=32, cell_size=24, detect_margin=10,
+            klt=tklt.KLTConfig(levels=3, max_iterations=8)),
+        window_size=4, image_shape=(H, W))
+
+
+def _frames():
+    rng = np.random.default_rng(0)
+    tex = (np.kron(rng.uniform(0, 1, (H // 8, W // 8)), np.ones((8, 8))) * 140
+           + np.kron(rng.uniform(0, 1, (H // 4, W // 4)), np.ones((4, 4))) * 70
+           + 40).astype(np.float32)
+    return [(np.roll(tex, -k, axis=1), np.roll(tex, -(k + 4), axis=1))
+            for k in range(N_FRAMES)]
+
+
+def _jax_rig():
+    params = jcam.pack_params(jcam.PINHOLE_RADTAN, [100.0, 100.0, W / 2, H / 2],
+                              [0, 0, 0, 0])
+    return jest.make_rig(params, params, jnp.eye(4, dtype=jnp.float32),
+                         jnp.eye(4, dtype=jnp.float32).at[0, 3].set(0.11))
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """JAX states (numpy) before each frame and outputs of each frame."""
+    cfg = _jax_cfg()
+    step = jest.make_estimator_step(cfg)
+    rig = _jax_rig()
+    state = jest.init_state(cfg)
+    states, outs = [_np(state)], []
+    for a, b in _frames():
+        state, out = step(state, rig, jnp.asarray(a), jnp.asarray(b))
+        states.append(_np(state))
+        outs.append(_np(out))
+    return dict(rig=_np(rig), states=states, outs=outs)
+
+
+@pytest.fixture(scope="module")
+def torch_step():
+    return test_.make_estimator_step(_torch_cfg())
+
+
+FLAGS = ("is_keyframe", "pnp_success", "ba_success", "n_tracked",
+         "n_landmarks", "n_alive", "pose_ok")
+
+
+def _pose_err(Tt, Tj):
+    dt = float(np.linalg.norm(Tt[:3, 3] - Tj[:3, 3]))
+    c = (np.trace(Tj[:3, :3].T @ Tt[:3, :3]) - 1.0) / 2.0
+    return dt, float(np.arccos(np.clip(c, -1.0, 1.0)))
+
+
+def _cfg_dict(c):
+    return {k: (_cfg_dict(v) if hasattr(v, "_fields") else v)
+            for k, v in c._asdict().items()}
+
+
+@pytest.mark.parametrize("pair", [
+    (jklt.KLTConfig, tklt.KLTConfig), (jfe.FrontendConfig, tfe.FrontendConfig),
+    (jpnp.PnPConfig, tpnp.PnPConfig), (jba.BAConfig, tba.BAConfig),
+    (jest.EstimatorConfig, test_.EstimatorConfig)],
+    ids=lambda p: p[0].__name__)
+def test_config_fields_and_defaults_equal(pair):
+    cj, ct = pair
+    assert cj._fields == ct._fields
+    assert _cfg_dict(cj()) == _cfg_dict(ct())
+
+
+def test_state_and_output_fields_equal():
+    for cj, ct in ((jest.EstimatorState, test_.EstimatorState),
+                   (jest.FrameOutput, test_.FrameOutput),
+                   (jest.CameraRig, test_.CameraRig),
+                   (jfe.FeatureTable, tfe.FeatureTable)):
+        assert cj._fields == ct._fields
+    assert test_.STAGE_NAMES == jest.STAGE_NAMES
+
+
+def test_sequence_matches_jax(jax_run, torch_step):
+    """~10 frames through both steps from the same initial state."""
+    rig = convert.rig_from_numpy(jax_run["rig"])
+    state = test_.init_state(_torch_cfg())
+    saw_ba = False
+    for k, (a, b) in enumerate(_frames()):
+        state, out = torch_step(state, rig, torch.from_numpy(a),
+                                torch.from_numpy(b))
+        oj = jax_run["outs"][k]
+        for f in FLAGS:
+            assert int(getattr(out, f)) == int(getattr(oj, f)), (k, f)
+        dt, dr = _pose_err(out.T_W_B.numpy(), oj.T_W_B)
+        assert dt <= POSE_TOL and dr <= POSE_TOL, (k, dt, dr)
+        saw_ba = saw_ba or bool(out.ba_success)
+    assert saw_ba and int(out.n_tracked) >= 10
+    assert float(out.T_W_B[0, 3]) > 0.05, "the rig must have moved"
+
+
+def _compare_states(st, sj):
+    """Field by field: integer/bool exact, floats within STEP_TOL."""
+    def cmp(name, t, j):
+        if j is None:
+            assert t is None, name
+            return
+        t = np.asarray(t)
+        assert t.shape == j.shape, name
+        if j.dtype.kind in "biu":
+            np.testing.assert_array_equal(t, j, err_msg=name)
+        else:
+            np.testing.assert_allclose(t, j, atol=STEP_TOL, rtol=STEP_TOL,
+                                       err_msg=name)
+    for f in test_.EstimatorState._fields:
+        t, j = getattr(st, f), getattr(sj, f)
+        if f in ("table", "marg_prior"):
+            for g in type(t)._fields:
+                cmp(f"{f}.{g}", getattr(t, g), getattr(j, g))
+        elif f in ("pyr0", "pyr1"):
+            for lvl, (a, b) in enumerate(zip(t, j)):
+                cmp(f"{f}[{lvl}]", a, b)
+        else:
+            cmp(f, t, j)
+
+
+@pytest.mark.parametrize("kind", ["keyframe_with_ba", "non_keyframe"])
+def test_one_step_from_converted_state(jax_run, torch_step, kind):
+    """Start the port from JAX's state before frame k, step frame k, and
+    compare the new state with JAX's state after frame k."""
+    outs = jax_run["outs"]
+    want = {"keyframe_with_ba": lambda o: bool(o.is_keyframe & o.ba_success),
+            "non_keyframe": lambda o: not bool(o.is_keyframe)}[kind]
+    ks = [k for k in range(2, N_FRAMES) if want(outs[k])]
+    assert ks, f"the sequence has no {kind} frame"
+    k = ks[0]
+    state = convert.state_from_numpy(jax_run["states"][k])
+    rig = convert.rig_from_numpy(jax_run["rig"])
+    a, b = _frames()[k]
+    new, out = torch_step(state, rig, torch.from_numpy(a), torch.from_numpy(b))
+    for f in FLAGS:
+        assert int(getattr(out, f)) == int(getattr(outs[k], f)), f
+    _compare_states(convert.state_to_numpy(new), jax_run["states"][k + 1])
+
+
+def test_convert_round_trip(jax_run):
+    sj = jax_run["states"][5]
+    st = convert.state_from_numpy(sj)
+    assert st.table.alive.dtype == torch.bool
+    assert st.kf_count.dtype == torch.int32 and st.kf_count.dim() == 0
+    _compare_states(convert.state_to_numpy(st), sj)
+
+
+def test_split_step_matches_fused_step(torch_step):
+    cfg = _torch_cfg()
+    split = test_.make_estimator_split_step(cfg)
+    rig = convert.rig_from_numpy(_np(_jax_rig()))
+    s1 = s2 = test_.init_state(cfg)
+    for a, b in _frames()[:5]:
+        a, b = torch.from_numpy(a), torch.from_numpy(b)
+        s1, o1 = torch_step(s1, rig, a, b)
+        s2, o2, times = split(s2, rig, a, b)
+        assert set(times) == set(test_.STAGE_NAMES)
+        assert torch.equal(o1.T_W_B, o2.T_W_B)
+        assert int(o1.n_alive) == int(o2.n_alive)
+
+
+UNPORTED = [
+    pytest.param(dict(use_marginalization=True), id="use_marginalization"),
+    pytest.param(dict(dynamic_flow_thresh=0.02), id="dynamic_flow_thresh"),
+    pytest.param(dict(refine_births=True), id="refine_births"),
+    pytest.param(dict(cull_reproj_threshold=0.01), id="cull_reproj"),
+    pytest.param(dict(use_obs_weights=True), id="use_obs_weights"),
+    pytest.param(dict(pnp_cv_predict=True), id="pnp_cv_predict"),
+    pytest.param(dict(pnp_prior_adaptive=True), id="pnp_prior_adaptive"),
+    pytest.param(dict(vision_weight_adaptive=True), id="vision_weight"),
+    pytest.param(dict(health_recover=0.5), id="health_recover"),
+    pytest.param(dict(obs_weight_age_ramp=0.1), id="age_ramp"),
+    pytest.param(dict(cam_kind_l="eucm"), id="eucm"),
+    pytest.param(dict(track_before_full=False), id="track_before_full"),
+    pytest.param(dict(pnp=tpnp.PnPConfig(ransac_hypotheses=16)), id="ransac"),
+    pytest.param(dict(frontend=tfe.FrontendConfig(detect_mode="nms")),
+                 id="detect_nms"),
+    pytest.param(dict(frontend=tfe.FrontendConfig(relax_floor_below=40)),
+                 id="starvation_floor"),
+    pytest.param(dict(frontend=tfe.FrontendConfig(
+        klt=tklt.KLTConfig(track_rotation=True))), id="track_rotation"),
+    pytest.param(dict(frontend=tfe.FrontendConfig(
+        klt=tklt.KLTConfig(interpolation="bicubic"))), id="bicubic"),
+    pytest.param(dict(frontend=tfe.FrontendConfig(
+        klt=tklt.KLTConfig(backend="xla"))), id="klt_gather_path"),
+]
+
+
+@pytest.mark.parametrize("opt", UNPORTED)
+def test_unported_options_raise(opt):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        test_.make_estimator_step(test_.EstimatorConfig(**opt))

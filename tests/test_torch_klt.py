@@ -1,0 +1,217 @@
+"""Parity of the port's fused bidirectional KLT (kernel K1) with the JAX
+Pallas kernel.
+
+The JAX side runs ``track_bidirectional_pyramid`` in interpret mode on the
+CPU, as the JAX package's own kernel tests do; the port runs
+``klt_bidir_reference``, the plain PyTorch version of its CUDA kernel, which
+is what the port's wrapper routes CPU tensors to. Inputs are shifted views
+of a seeded multi-scale texture, with features in the border band, outside
+the image and in dead slots.
+
+Tolerance: ``ok`` must be equal and positions within 1e-3 px where ok. Both
+sides compute the same fp32 operations except for the order of the 256-term
+patch sums, which moves positions by ~1e-6 px (measured); 1e-3 px leaves
+room for one extra or one fewer Gauss-Newton step of a feature sitting on
+its convergence threshold.
+
+The CUDA kernel itself is compared with the plain version by the ``gpu``
+test at the end, which needs a card and is skipped here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from rsvio_tpu.ops import pyramid as jpyr
+from rsvio_tpu.ops.pallas.klt_kernel import track_bidirectional_pyramid
+from rsvio_tpu_torch.data import bench_scene
+from rsvio_tpu_torch.ops import klt as tklt
+from rsvio_tpu_torch.ops import pyramid as tpyr
+from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
+
+torch.set_num_threads(2)
+
+H, W, LEVELS = 72, 104, 3
+POS_TOL = 1e-3
+
+
+def _views(seed, shifts):
+    """Float32 (H, W) renders of one texture seen from x offsets `shifts`
+    (metres; 0.01 m = 1.2 px at these settings)."""
+    tex = bench_scene.make_texture(seed, size=512,
+                                   octaves=((90.0, 24), (60.0, 96)))
+    return [bench_scene.render(tex, dx, 0.2 * dx, shape=(H, W), fx=120.0,
+                               plane_z=3.0, scale=40.0, offset=200.0).numpy()
+            for dx in shifts]
+
+
+def _points(seed, n):
+    """Interior points plus border-band, outside-image and far-away ones."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([4, 4], [W - 5, H - 5], size=(n, 2)).astype(np.float32)
+    pts[:8] = [[-6.0, 20.0], [W + 4.0, 30.0], [1.2, 1.7], [W - 2.4, H - 2.2],
+               [2.0, 35.0], [50.0, H - 3.0], [1e5, -1e5], [0.4, 0.6]]
+    alive = np.ones(n, bool)
+    alive[8:11] = False
+    return pts, alive
+
+
+def _jax_pyr(img):
+    return jpyr.build_pyramid(jnp.asarray(img), LEVELS)
+
+
+def _torch_pyr(img):
+    return tpyr.build_pyramid(torch.from_numpy(img), LEVELS)
+
+
+def _compare(pj, okj, pt, okt, alive):
+    pj, okj = np.asarray(pj), np.asarray(okj)
+    pt, okt = pt.numpy(), okt.numpy()
+    np.testing.assert_array_equal(okj, okt)
+    assert okj.sum() >= 0.5 * alive.sum(), "too few tracks to compare"
+    np.testing.assert_allclose(pt[okj], pj[okj], atol=POS_TOL, rtol=0)
+    # Failed features keep their source position on both sides.
+    np.testing.assert_array_equal(pt[~okj], pj[~okj])
+
+
+CASES = [
+    # (coarse_tolerant, residual_mode, lm_lambda)
+    (True, "lssd", 0.0),
+    (False, "ssd", 0.5),
+    (False, "lssd", 0.5),
+    (True, "ssd", 0.0),
+]
+
+
+@pytest.mark.parametrize("tolerant,mode,lam", CASES)
+def test_single_camera_matches_pallas(tolerant, mode, lam):
+    img0, img1 = _views(1, [0.0, 0.017])
+    pts, alive = _points(2, 48)
+    kw = dict(max_iterations=10, conv_thresh_sq=1e-4, bidir_thresh_sq=0.4,
+              residual_mode=mode, lm_lambda=lam)
+    pj, _, okj = track_bidirectional_pyramid(
+        _jax_pyr(img0), _jax_pyr(img1), jnp.asarray(pts), jnp.asarray(alive),
+        interpret=True, coarse_tolerant=tolerant, **kw)
+    src, dims = kk.pack_pyramids([_torch_pyr(img0)])
+    dst, _ = kk.pack_pyramids([_torch_pyr(img1)])
+    pt, th, okt = kk.klt_bidir_reference(
+        src, dst, dims, torch.from_numpy(pts), torch.from_numpy(alive),
+        torch.zeros(len(pts), dtype=torch.int32), coarse_tolerant=tolerant,
+        **kw)
+    _compare(pj, okj, pt, okt, alive)
+    assert not okt[8:11].any(), "dead slots must stay dead"
+    assert not okt[[0, 1, 6]].any(), "outside-image features must fail"
+    assert (th == 0).all()
+
+
+def test_camera_stacked_batch_matches_pallas():
+    """C=2: each camera tracks in its own images, one call for both."""
+    a0, a1 = _views(3, [0.0, 0.012])
+    b0, b1 = _views(4, [0.0, -0.02])
+    pts, alive = _points(5, 40)
+    cam = np.repeat(np.arange(2, dtype=np.int32), 20)
+    kw = dict(max_iterations=10, conv_thresh_sq=1e-4, bidir_thresh_sq=0.4)
+    pj, _, okj = track_bidirectional_pyramid(
+        tuple(jnp.stack([x, y]) for x, y in zip(_jax_pyr(a0), _jax_pyr(b0))),
+        tuple(jnp.stack([x, y]) for x, y in zip(_jax_pyr(a1), _jax_pyr(b1))),
+        jnp.asarray(pts), jnp.asarray(alive), interpret=True,
+        cam=jnp.asarray(cam), coarse_tolerant=True, **kw)
+    src, dims = kk.pack_pyramids([_torch_pyr(a0), _torch_pyr(b0)])
+    dst, _ = kk.pack_pyramids([_torch_pyr(a1), _torch_pyr(b1)])
+    pt, _, okt = kk.klt_bidir_reference(
+        src, dst, dims, torch.from_numpy(pts), torch.from_numpy(alive),
+        torch.from_numpy(cam), coarse_tolerant=True, **kw)
+    _compare(pj, okj, pt, okt, alive)
+
+
+def test_stereo_entry_equals_two_single_calls():
+    """track_points_bidirectional_stereo (one camera-stacked pass) gives
+    exactly what two per-camera passes give."""
+    a0, a1 = _views(6, [0.0, 0.01])
+    b0, b1 = _views(7, [0.0, 0.015])
+    p0, alive = _points(8, 24)
+    p1 = p0 + np.float32(0.5)
+    cfg = tklt.KLTConfig(levels=LEVELS, max_iterations=8)
+    pa, pb, pc, pd = (_torch_pyr(x) for x in (a0, b0, a1, b1))
+    t0, t1 = torch.from_numpy(p0), torch.from_numpy(p1)
+    al = torch.from_numpy(alive)
+    q0, A0, ok0, q1, A1, ok1 = tklt.track_points_bidirectional_stereo(
+        pa, pb, pc, pd, t0, t1, al, cfg)
+    r0, _, k0 = tklt.track_points_bidirectional(pa, pc, t0, al, cfg)
+    r1, _, k1 = tklt.track_points_bidirectional(pb, pd, t1, al, cfg)
+    assert torch.equal(q0, r0) and torch.equal(ok0, k0)
+    assert torch.equal(q1, r1) and torch.equal(ok1, k1)
+    assert torch.equal(A0, torch.eye(2).expand_as(A0))
+
+
+def test_rotation_variant_raises():
+    img = torch.from_numpy(_views(9, [0.0])[0])
+    src, dims = kk.pack_pyramids([tpyr.build_pyramid(img, LEVELS)])
+    pos = torch.full((3, 2), 30.0)
+    args = (src, src, dims, pos, torch.ones(3, dtype=torch.bool),
+            torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(NotImplementedError):
+        kk.klt_bidir(*args, with_rotation=True)
+    with pytest.raises(NotImplementedError):
+        kk.klt_bidir_reference(*args, with_rotation=True)
+    pyr = tpyr.build_pyramid(img, LEVELS)
+    for bad in (tklt.KLTConfig(levels=LEVELS, track_rotation=True),
+                tklt.KLTConfig(levels=LEVELS, backend="xla"),
+                tklt.KLTConfig(levels=LEVELS, interpolation="bicubic")):
+        with pytest.raises(NotImplementedError):
+            tklt.track_points_bidirectional(pyr, pyr, pos, args[4], bad)
+
+
+def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
+    img = torch.from_numpy(_views(10, [0.0])[0])
+    src, dims = kk.pack_pyramids([tpyr.build_pyramid(img, LEVELS)])
+    pos = torch.full((4, 2), 30.0)
+    alive = torch.ones(4, dtype=torch.bool)
+    cam = torch.zeros(4, dtype=torch.int32)
+    before = kk.klt_bidir.launches
+    _, _, ok = kk.klt_bidir(src, src, dims, pos, alive, cam)
+    assert ok.all()                      # identity track on the CPU path
+    assert kk.klt_bidir.launches == before   # the plain version is no launch
+    with pytest.raises(TypeError):
+        kk.klt_bidir(src, src, dims, pos.double(), alive, cam)
+    with pytest.raises(TypeError):
+        kk.klt_bidir(src, src, dims, pos, alive, cam.long())
+    with pytest.raises(ValueError):
+        kk.klt_bidir(src[:, :-1], src, dims, pos, alive, cam)
+    with pytest.raises(ValueError):
+        kk.klt_bidir(src, src, dims, pos.t().contiguous().t(), alive, cam)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version(cuda_device):
+    """Kernel vs plain version on the same CUDA tensors (C=2, both
+    policies)."""
+    a0, a1 = _views(11, [0.0, 0.012])
+    b0, b1 = _views(12, [0.0, 0.02])
+    pts, alive = _points(13, 64)
+    cam = np.repeat(np.arange(2, dtype=np.int32), 32)
+    dev = cuda_device
+    src, dims = kk.pack_pyramids([tpyr.build_pyramid(torch.from_numpy(x).to(dev), LEVELS)
+                                  for x in (a0, b0)])
+    dst, _ = kk.pack_pyramids([tpyr.build_pyramid(torch.from_numpy(x).to(dev), LEVELS)
+                               for x in (a1, b1)])
+    args = (src, dst, dims, torch.from_numpy(pts).to(dev),
+            torch.from_numpy(alive).to(dev), torch.from_numpy(cam).to(dev))
+    for tolerant in (True, False):
+        before = kk.klt_bidir.launches
+        pk, _, okk = kk.klt_bidir(*args, coarse_tolerant=tolerant)
+        torch.cuda.synchronize()
+        assert kk.klt_bidir.launches == before + 1
+        pr, _, okr = kk.klt_bidir_reference(*args, coarse_tolerant=tolerant)
+        assert torch.equal(okk, okr)
+        both = okk & okr
+        assert float((pk[both] - pr[both]).abs().max()) <= POS_TOL
