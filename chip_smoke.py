@@ -5,40 +5,90 @@
 Needs a CUDA device and the CUDA toolkit (nvcc); exits non-zero without
 them. Phases, each of which raises on failure:
 
-  1. build   — compiles the port's CUDA kernel from rsvio_tpu_torch/csrc/.
-  2. kernel  — runs the KLT kernel (K1) and its plain PyTorch version on the
-               same CUDA tensors at both main-path shapes (temporal pass:
-               2 cameras x 256 slots; stereo match: 135 grid candidates) and
-               requires equal ok on >= 99% of rows and |dpos| <= 1e-3 px
-               where both are ok; times both (CUDA events, median of 25).
+  1. build   — compiles the port's CUDA kernels from rsvio_tpu_torch/csrc/.
+  2. kernel  — runs each kernel and its plain PyTorch version on the same
+               CUDA tensors and requires equal ok on >= 99% of rows,
+               |dpos| <= 1e-3 px and |dtheta| <= 1e-4 rad where both are
+               ok; times both (CUDA events, median of 25):
+               K1 klt_bidir at both main-path shapes (temporal pass:
+               2 cameras x 256 slots; stereo match: 135 grid candidates),
+               K1-rot klt_bidir(with_rotation) at the temporal shape on a
+               pair whose second frame is rolled by 3 degrees, and K2
+               klt_level at pyramid levels 0 and 3, 512 features,
+               translation and rotation.
   3. agree   — runs the port's estimator step on a small scene on the CPU
-               (plain KLT) and on the GPU (kernel) and requires the poses to
-               agree within 1e-3.
-  4. main    — the port's make_estimator_step at the EuRoC shape (752x480,
+               (plain KLT) and on the GPU (kernels) and requires the poses
+               to agree within 1e-3.
+  4. track_points — ops.klt.track_points forward then backward (the
+               JAX package's per-level composition) on the kernel route at
+               the EuRoC shape, translation and rotation: exactly 2 x 6 K2
+               launches per composition; each direction agrees with the
+               same composition run through the plain klt_level_reference
+               (so K2 is checked at every level and start this path gives
+               it), and the whole with one fused K1 launch.
+  5. main    — the port's make_estimator_step at the EuRoC shape (752x480,
                6 levels, 256 slots, window 10, default EstimatorConfig) on
                the bench scene: 6 warm-up frames, 60 timed frames, a 20-frame
                blocked quality pass and a 10-frame per-stage split. Requires
-               exactly 2 kernel launches per frame and the bench.py quality
+               exactly 2 K1 launches per frame and the bench.py quality
                floors (tracked_mean >= 80, kill rate <= 0.3, finite pose,
                pose_ok on every frame, BA fired in the quality pass,
                drift <= 2%).
+  6. rotation — the same step with KLTConfig(track_rotation=True): 6 warm-up,
+               30 timed and 20 quality frames, exactly 2 K1-rot launches per
+               frame, the same floors.
+  7. mono    — models.mono_tracker at the config/tartanair.yaml values on
+               640x480 left-camera bench frames: exactly 1 K1 launch per
+               frame after the first, tracked_mean >= 80, kill <= 0.3.
 
-Prints the card's name and power limit, per-phase numbers, a JSON line
-{"kernels": [...]} and, as the last line, {"ok": true, "device": {...}}.
+Every path phase sets the launch counts to 0 just before it and reads them
+just after. Prints the card's name and power limit, per-phase numbers, a
+JSON line {"kernels": [...]} and, as the last line, {"ok": true,
+"device": {...}}.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 WARMUP, TIMED, QUAL, SPLIT = 6, 60, 20, 10
+ROT_TIMED = 30
+MONO_FRAMES, MONO_WARMUP = 40, 10
 KERNEL_RUNS = 25
 POS_TOL = 1e-3
-REPLACES = "rsvio_tpu/ops/pallas/klt_kernel.py:737"
+THETA_TOL = 1e-4
+ROLL = 0.0524          # rad (3 degrees) between the K1-rot pair's frames
 SOURCE = "rsvio_tpu_torch/csrc/klt_bidir.cu"
+REPLACES = {
+    "klt_bidir": "rsvio_tpu/ops/pallas/klt_kernel.py:737",
+    "klt_bidir_rot": "rsvio_tpu/ops/pallas/klt_kernel.py:737",
+    "klt_level": "rsvio_tpu/ops/pallas/klt_kernel.py:555",
+}
+
+# The mono tracker's settings, from config/tartanair.yaml (nlevels 5,
+# ratio 2.0 with preprocessing_blur sigma 2.0, detection_min_dist 15 as the
+# NMS radius and cell size, detection_threshold 2.5 in the reference's
+# x1000 units -> 2.5 / 4000, optical_flow_max_iter 25,
+# optical_flow_lm_lambda 0.1), mapped as rsvio_tpu/cli/run_tartanair.py
+# maps them. The card's machine has no YAML parser, so they are written in.
+MONO = dict(levels=5, ratio=0.5, blur_sigma=2.0, radius=15,
+            min_score=2.5 / 4000.0, max_iter=25, lm_lambda=0.1,
+            capacity=256, shape=(480, 640), fx=320.0)
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the tensor cores
+# and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations per pattern point, counted from csrc/klt_bidir.cu: building
+# one template (samples, gradients, normalization, Hessian, H^-1 J rows) and
+# one Gauss-Newton step (sample, residual, increment sums), per variant.
+TEMPLATE_OPS = {False: 68, True: 90}
+ITER_OPS = {False: 19, True: 42}
+PATTERN_POINTS = 256
 
 
 def check(cond, msg):
@@ -71,26 +121,75 @@ def cuda_median_ms(fn, runs=KERNEL_RUNS, warmup=3):
     return statistics.median(times)
 
 
-def kernel_phase(frames, dev):
-    """K1 vs its plain version at the two main-path shapes."""
+def reset_counts():
+    from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
+    kk.klt_bidir.launches = 0
+    kk.klt_bidir.rot_launches = 0
+    kk.klt_level.launches = 0
+
+
+def counts():
+    from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
+    return {"klt_bidir": kk.klt_bidir.launches,
+            "klt_bidir_rot": kk.klt_bidir.rot_launches,
+            "klt_level": kk.klt_level.launches}
+
+
+def bound_ms(tensors, work, rot):
+    """Least time for the same work: the bytes the call must move at HBM
+    rate — each image pixel its templates and Gauss-Newton steps read, once
+    (the plain version's work["touched"] masks, float32), plus the
+    per-feature inputs and the outputs in `tensors` — or this run's
+    operations at the fp32 rate, whichever is larger. Returns (ms, "bytes"
+    or "operations", bytes)."""
+    nbytes = 4 * sum(int(m.sum()) for m in work["touched"].values()) \
+        + sum(t.numel() * t.element_size() for t in tensors)
+    ops = PATTERN_POINTS * (work["templates"] * TEMPLATE_OPS[rot]
+                            + work["iterations"] * ITER_OPS[rot])
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    if t_ops >= t_bytes:
+        return t_ops, "operations", nbytes
+    return t_bytes, "bytes", nbytes
+
+
+def compare(name, out, ref, n):
+    """Kernel vs plain results: ok agreement, max |dpos|, max |dtheta|."""
+    (pk, thk, okk), (pr, thr, okr) = out, ref
+    agree = float((okk == okr).float().mean())
+    both = okk & okr
+    err = float((pk[both] - pr[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    err_th = float((thk[both] - thr[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+    check(agree >= 0.99, f"{name}: ok agrees on only {agree:.4f}")
+    check(err <= POS_TOL, f"{name}: max|dpos| {err} > {POS_TOL}")
+    check(err_th <= THETA_TOL, f"{name}: max|dtheta| {err_th} > {THETA_TOL}")
+    check(int(okk.sum()) >= n // 4, f"{name}: only {int(okk.sum())} ok")
+    return agree, err, err_th
+
+
+def kernel_phase(frames, rolled, dev):
+    """Each kernel vs its plain version at the main-path shapes."""
     import torch
     from rsvio_tpu_torch.ops import detect, pyramid
     from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 
     (l0, r0), (l1, r1) = frames[10], frames[11]
     pyrs = [pyramid.build_pyramid(im, 6) for im in (l0, r0, l1, r1)]
+    rot_pyrs = [pyramid.build_pyramid(im, 6) for im in rolled]
     gen = torch.Generator().manual_seed(0)
     # Temporal pass: 256 slots per camera, cam1 at the plane's disparity.
     p0 = torch.rand((256, 2), generator=gen) * torch.tensor([700.0, 430.0]) \
         + torch.tensor([25.0, 25.0])
     p1 = p0 - torch.tensor([458.0 * 0.11 / 5.0, 0.0])
-    temporal = dict(
-        src=kk.pack_pyramids([pyrs[0], pyrs[1]]),
-        dst=kk.pack_pyramids([pyrs[2], pyrs[3]]),
-        pos=torch.cat([p0, p1]).to(dev),
-        alive=torch.ones(512, dtype=torch.bool, device=dev),
-        cam=torch.cat([torch.zeros(256), torch.ones(256)]).to(
-            torch.int32).to(dev))
+    pos512 = torch.cat([p0, p1]).to(dev)
+    cam512 = torch.cat([torch.zeros(256), torch.ones(256)]).to(
+        torch.int32).to(dev)
+    alive512 = torch.ones(512, dtype=torch.bool, device=dev)
+    temporal = dict(src=kk.pack_pyramids([pyrs[0], pyrs[1]]),
+                    dst=kk.pack_pyramids([pyrs[2], pyrs[3]]), pos=pos512,
+                    alive=alive512, cam=cam512, rot=False)
+    temporal_rot = dict(temporal, dst=kk.pack_pyramids(rot_pyrs), rot=True)
     # Stereo match: the grid candidates of frame 11's left image.
     score = detect.fast_score(l1)
     cand, cand_ok = detect.select_grid_features(
@@ -100,31 +199,72 @@ def kernel_phase(frames, dev):
                   dst=kk.pack_pyramids([pyrs[3]]), pos=cand.contiguous(),
                   alive=cand_ok.contiguous(),
                   cam=torch.zeros(cand.shape[0], dtype=torch.int32,
-                                  device=dev))
+                                  device=dev), rot=False)
     results = {}
-    for name, c in (("temporal", temporal), ("stereo", stereo)):
+    for name, c in (("temporal", temporal), ("stereo", stereo),
+                    ("temporal_rot", temporal_rot)):
         (src, dims), (dst, _) = c["src"], c["dst"]
         args = (src, dst, dims, c["pos"], c["alive"], c["cam"])
         kw = dict(max_iterations=20, conv_thresh_sq=1e-4,
-                  bidir_thresh_sq=0.4, coarse_tolerant=True)
-        pk, _, okk = kk.klt_bidir(*args, **kw)
+                  bidir_thresh_sq=0.4, coarse_tolerant=True,
+                  with_rotation=c["rot"])
+        out = kk.klt_bidir(*args, **kw)
         torch.cuda.synchronize()
-        pr, _, okr = kk.klt_bidir_reference(*args, **kw)
-        agree = float((okk == okr).float().mean())
-        both = okk & okr
-        err = float((pk[both] - pr[both]).abs().max()) if bool(both.any()) \
-            else 0.0
+        work = {"templates": 0, "iterations": 0}
+        ref = kk.klt_bidir_reference(*args, work=work, **kw)
+        n = c["pos"].shape[0]
+        agree, err, err_th = compare(name, out, ref, n)
         ms = cuda_median_ms(lambda: kk.klt_bidir(*args, **kw))
         plain_ms = cuda_median_ms(lambda: kk.klt_bidir_reference(*args, **kw))
-        n = c["pos"].shape[0]
+        bms, by, nbytes = bound_ms(args[3:] + out, work, c["rot"])
         print(f"kernel[{name}] C={src.shape[0]} N={n}: ok kernel="
-              f"{int(okk.sum())} plain={int(okr.sum())} agree={agree:.4f} "
-              f"max|dpos|={err:.3g}px kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f}", flush=True)
-        check(agree >= 0.99, f"{name}: ok agrees on only {agree:.4f}")
-        check(err <= POS_TOL, f"{name}: max|dpos| {err} > {POS_TOL}")
-        check(int(okk.sum()) >= n // 4, f"{name}: only {int(okk.sum())} ok")
-        results[name] = dict(err=err, ms=ms, plain_ms=plain_ms)
+              f"{int(out[2].sum())} plain={int(ref[2].sum())} agree="
+              f"{agree:.4f} max|dpos|={err:.3g}px max|dth|={err_th:.3g} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
+              f"{bms:.5f} ({by}; {work['templates']} templates, "
+              f"{work['iterations']} GN steps, {nbytes} B)", flush=True)
+        if c["rot"]:
+            th_mean = float(out[1][out[2]].mean())
+            print(f"kernel[{name}] mean theta of ok tracks {th_mean:.4f} rad "
+                  f"(second frame rolled by {ROLL} rad)", flush=True)
+            check(th_mean < -0.5 * ROLL, "the roll was not recovered")
+        results[name] = dict(err=max(err, err_th), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by)
+
+    # K2: one level, both variants, 512 features started 2.5 px (level 0
+    # scale) off along the true motion.
+    for lvl in (0, 3):
+        s = 0.5 ** lvl
+        src = torch.stack([pyrs[0][lvl], pyrs[1][lvl]]).contiguous()
+        pos_src = (pos512 * s).contiguous()
+        start = (pos_src + torch.tensor([-2.5 * s, 0.0], device=dev)) \
+            .contiguous()
+        for rot in (False, True):
+            dst_pyrs = rot_pyrs if rot else pyrs[2:]
+            dst = torch.stack([dst_pyrs[0][lvl], dst_pyrs[1][lvl]]) \
+                .contiguous()
+            theta0 = torch.zeros(512, device=dev)
+            args = (src, dst, pos_src, start, theta0, alive512, cam512)
+            kw = dict(max_iterations=20, conv_thresh_sq=1e-4,
+                      with_rotation=rot)
+            out = kk.klt_level(*args, **kw)
+            torch.cuda.synchronize()
+            work = {"templates": 0, "iterations": 0}
+            ref = kk.klt_level_reference(*args, work=work, **kw)
+            name = f"level{lvl}{'_rot' if rot else ''}"
+            agree, err, err_th = compare(name, out, ref, 512)
+            ms = cuda_median_ms(lambda: kk.klt_level(*args, **kw))
+            plain_ms = cuda_median_ms(
+                lambda: kk.klt_level_reference(*args, **kw))
+            bms, by, nbytes = bound_ms(args[2:] + out, work, rot)
+            print(f"kernel[{name}] C=2 N=512 {tuple(src.shape[1:])}: ok "
+                  f"kernel={int(out[2].sum())} plain={int(ref[2].sum())} "
+                  f"agree={agree:.4f} max|dpos|={err:.3g}px max|dth|="
+                  f"{err_th:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bms:.5f} ({by}; {work['templates']} templates, "
+                  f"{work['iterations']} GN steps, {nbytes} B)", flush=True)
+            results[name] = dict(err=max(err, err_th), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     return results
 
 
@@ -164,36 +304,92 @@ def agree_phase(dev):
     check(float(ref[-1][0, 3]) > 0.1, "small scene did not move")
 
 
-def main_phase(frames, dev):
+def track_points_phase(frames, rolled, dev):
+    """track_points forward + backward on the kernel route, at the EuRoC
+    shape, both variants: each direction vs the same composition with the
+    plain klt_level_reference at every level (the K2 check at every shape
+    this path gives it), and the whole vs one fused bidirectional launch."""
+    import torch
+    from rsvio_tpu_torch.ops import klt, pyramid
+    from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
+
+    gen = torch.Generator().manual_seed(1)
+    pos = (torch.rand((256, 2), generator=gen) * torch.tensor([700.0, 430.0])
+           + torch.tensor([25.0, 25.0])).to(dev)
+    alive = torch.ones(256, dtype=torch.bool, device=dev)
+    eye = torch.eye(2, device=dev).expand(256, 2, 2)
+    p_src = pyramid.build_pyramid(frames[10][0], 6)
+    level_launches = []
+    for rot in (False, True):
+        p_dst = pyramid.build_pyramid(rolled[0] if rot else frames[11][0], 6)
+        cfg = klt.KLTConfig(track_rotation=rot)
+        reset_counts()
+        pf, Af, okf = klt.track_points(p_src, p_dst, pos, pos, eye, alive,
+                                       cfg)
+        pb, Ab, okb = klt.track_points(p_dst, p_src, pf, pos,
+                                       Af.transpose(-1, -2), okf, cfg)
+        torch.cuda.synchronize()
+        c = counts()
+        name = f"track_points{'_rot' if rot else ''}"
+        check(c["klt_level"] == 12 and c["klt_bidir"] == 0
+              and c["klt_bidir_rot"] == 0,
+              f"{name}: launches {c}, want 12 of klt_level only")
+        rf = klt._track_points_kernel(p_src, p_dst, pos, pos, eye, alive,
+                                      cfg, level_fn=kk.klt_level_reference)
+        rb = klt._track_points_kernel(p_dst, p_src, rf[0], pos,
+                                      rf[1].transpose(-1, -2), rf[2], cfg,
+                                      level_fn=kk.klt_level_reference)
+        check(counts() == c, f"{name}: the plain composition launched")
+        for d, out, ref in (("fwd", (pf, Af, okf), rf),
+                            ("bwd", (pb, Ab, okb), rb)):
+            th_o, th_r = (torch.atan2(A[:, 1, 0], A[:, 0, 0])
+                          for A in (out[1], ref[1]))
+            agree, err, err_th = compare(
+                f"{name}[{d}] kernel vs plain", (out[0], th_o, out[2]),
+                (ref[0], th_r, ref[2]), 256)
+            print(f"{name}[{d}]: 6 K2 launches vs klt_level_reference at "
+                  f"each level: ok kernel={int(out[2].sum())} plain="
+                  f"{int(ref[2].sum())} agree={agree:.4f} max|dpos|="
+                  f"{err:.3g}px max|dth|={err_th:.3g}", flush=True)
+        ok = okf & okb & (((pb - pos) ** 2).sum(dim=1)
+                          < cfg.bidir_threshold_sq)
+        p1, A1, ok1 = klt.track_points_bidirectional(p_src, p_dst, pos,
+                                                     alive, cfg)
+        torch.cuda.synchronize()
+        th, th1 = (torch.atan2(A[:, 1, 0], A[:, 0, 0]) for A in (Af, A1))
+        agree, err, err_th = compare(name, (p1, th1, ok1), (pf, th, ok), 256)
+        print(f"{name}: K2 launches {c['klt_level']} (fused K1: 1); ok "
+              f"composed={int(ok.sum())} fused={int(ok1.sum())} agree="
+              f"{agree:.4f} max|dpos|={err:.3g}px max|dth|={err_th:.3g}",
+              flush=True)
+        level_launches.append(c["klt_level"])
+    return sum(level_launches)
+
+
+def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
+    """Warm-up, timed and blocked quality frames of one estimator config;
+    returns (summary dict, launch counts of the whole run)."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.models import estimator as est
-    from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 
-    cfg = est.EstimatorConfig()
-    fe = cfg.frontend
-    check((fe.capacity, fe.cell_size, fe.detect_margin, fe.klt.levels,
-           fe.klt.max_iterations, cfg.window_size, tuple(cfg.image_shape))
-          == (256, 50, 19, 6, 20, 10, (480, 752)),
-          "default config is not the EuRoC bench shape")
     step = est.make_estimator_step(cfg)
     split = est.make_estimator_split_step(cfg)
-    rig = bench_scene.make_rig(dev)
     state = est.init_state(cfg, device=dev)
 
-    kk.klt_bidir.launches = 0
+    reset_counts()
     k = 0
     for _ in range(WARMUP):
         state, out = step(state, rig, *frames[k])
         k += 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED):
+    for _ in range(timed):
         state, out = step(state, rig, *frames[k])
         k += 1
     torch.cuda.synchronize()
-    fps = TIMED / (time.perf_counter() - t0)
+    fps = timed / (time.perf_counter() - t0)
 
     tracked, alive, step_ms = [], [], []
     ba_seen, pose_ok_all = 0, True
@@ -214,30 +410,133 @@ def main_phase(frames, dev):
     drift = abs(x_final - x_truth) / max(abs(x_truth), 1e-9)
 
     stage_ms = {name: [] for name in est.STAGE_NAMES}
-    for _ in range(SPLIT):
+    for _ in range(split_frames):
         state, out, times = split(state, rig, *frames[k])
         k += 1
         for name, v in times.items():
             stage_ms[name].append(v)
-    launches = kk.klt_bidir.launches
-
+    c = counts()
     summary = {
         "frames_per_s": fps, "blocked_median_ms": statistics.median(step_ms),
         "tracked_mean": float(np.mean(tracked)), "bidir_kill_rate": kill,
         "x_final": x_final, "x_truth": x_truth, "drift_rel": drift,
         "ba_fires_in_quality_pass": ba_seen, "pose_ok": pose_ok_all,
-        "stage_median_ms": {n: statistics.median(v)
-                            for n, v in stage_ms.items()},
-        "frames": k, "klt_launches": launches}
-    print("main: " + json.dumps(summary), flush=True)
-    check(launches == 2 * k, f"{launches} kernel launches for {k} frames")
-    check(summary["tracked_mean"] >= 80.0, "tracked_mean < 80")
-    check(kill <= 0.3, f"kill rate {kill} > 0.3")
-    check(np.isfinite(x_final), "final pose not finite")
-    check(pose_ok_all, "pose recovery fired in the quality pass")
-    check(ba_seen >= 1, "BA never fired in the quality pass")
-    check(drift <= 0.02, f"drift {drift} > 0.02")
-    return launches
+        "frames": k, "launches": c}
+    if split_frames:
+        summary["stage_median_ms"] = {n: statistics.median(v)
+                                      for n, v in stage_ms.items()}
+    return summary, c
+
+
+def check_floors(tag, s):
+    check(s["tracked_mean"] >= 80.0, f"{tag}: tracked_mean < 80")
+    check(s["bidir_kill_rate"] <= 0.3,
+          f"{tag}: kill rate {s['bidir_kill_rate']} > 0.3")
+    check(s["x_final"] == s["x_final"] and abs(s["x_final"]) < 1e6,
+          f"{tag}: final pose not finite")
+    check(s["pose_ok"], f"{tag}: pose recovery fired in the quality pass")
+    check(s["ba_fires_in_quality_pass"] >= 1,
+          f"{tag}: BA never fired in the quality pass")
+    check(s["drift_rel"] <= 0.02, f"{tag}: drift {s['drift_rel']} > 0.02")
+
+
+def main_phase(frames, dev):
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+
+    cfg = est.EstimatorConfig()
+    fe = cfg.frontend
+    check((fe.capacity, fe.cell_size, fe.detect_margin, fe.klt.levels,
+           fe.klt.max_iterations, cfg.window_size, tuple(cfg.image_shape))
+          == (256, 50, 19, 6, 20, 10, (480, 752)),
+          "default config is not the EuRoC bench shape")
+    s, c = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, TIMED,
+                  split_frames=SPLIT)
+    print("main: " + json.dumps(s), flush=True)
+    check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
+                "klt_level": 0},
+          f"main: launches {c} for {s['frames']} frames")
+    check_floors("main", s)
+    return c["klt_bidir"]
+
+
+def rotation_phase(frames, dev):
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+    from rsvio_tpu_torch.models.frontend import FrontendConfig
+    from rsvio_tpu_torch.ops.klt import KLTConfig
+
+    cfg = est.EstimatorConfig(
+        frontend=FrontendConfig(klt=KLTConfig(track_rotation=True)))
+    s, c = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, ROT_TIMED)
+    print("rotation: " + json.dumps(s), flush=True)
+    check(c == {"klt_bidir": 0, "klt_bidir_rot": 2 * s["frames"],
+                "klt_level": 0},
+          f"rotation: launches {c} for {s['frames']} frames")
+    check_floors("rotation", s)
+    return c["klt_bidir_rot"]
+
+
+def mono_phase(tex, dev):
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import mono_tracker as mt
+    from rsvio_tpu_torch.ops import pyramid
+    from rsvio_tpu_torch.ops.klt import KLTConfig
+
+    m = MONO
+    cfg = mt.MonoTrackerConfig(
+        capacity=m["capacity"], cell_size=m["radius"],
+        min_score=m["min_score"], detect_mode="nms", nms_radius=m["radius"],
+        klt=KLTConfig(levels=m["levels"], max_iterations=m["max_iter"],
+                      convergence_threshold=0.005, lm_lambda=m["lm_lambda"],
+                      pyramid_ratio=m["ratio"]))
+    imgs = [bench_scene.render(tex, bench_scene.STEP_M * k, shape=m["shape"],
+                               fx=m["fx"]) for k in range(MONO_FRAMES)]
+    table = mt.init_mono_table(cfg.capacity, device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    pyr_prev, tracked, alive, ms = None, [], [], []
+    for k, img in enumerate(imgs):
+        t0 = time.perf_counter()
+        pyr = pyramid.build_pyramid_ratio(img, m["levels"], m["ratio"],
+                                          blur=True,
+                                          blur_sigma=m["blur_sigma"])
+        table, stats = mt.mono_tracker_step(
+            table, pyr if pyr_prev is None else pyr_prev, pyr, cfg,
+            first_frame=pyr_prev is None)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        pyr_prev = pyr
+        tracked.append(int(stats["tracked"]))
+        alive.append(int(stats["alive"]))
+    c = counts()
+    q = range(MONO_WARMUP, MONO_FRAMES)
+    kill = float(np.mean([1.0 - tracked[i] / max(alive[i - 1], 1)
+                          for i in q]))
+    s = {"frames": MONO_FRAMES, "ms_per_frame_median": statistics.median(
+        ms[MONO_WARMUP:]), "tracked_mean": float(np.mean(
+            [tracked[i] for i in q])), "kill_rate": kill,
+         "alive_last": alive[-1], "launches": c}
+    print("mono: " + json.dumps(s), flush=True)
+    check(c == {"klt_bidir": MONO_FRAMES - 1, "klt_bidir_rot": 0,
+                "klt_level": 0},
+          f"mono: launches {c} for {MONO_FRAMES} frames")
+    check(s["tracked_mean"] >= 80.0, "mono: tracked_mean < 80")
+    check(kill <= 0.3, f"mono: kill rate {kill} > 0.3")
+    return c["klt_bidir"]
+
+
+def kernel_entry(name, launches, rows, extra=None):
+    r0 = rows[0]
+    e = {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": launches,
+         "max_abs_err": max(r["err"] for r in rows), "ms": r0["ms"],
+         "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
+         "bound_by": r0["bound_by"], "library_ms": None}
+    e.update(extra or {})
+    return e
 
 
 def main():
@@ -259,29 +558,49 @@ def main():
     built = kk.load_library()
     print(f"build: {time.perf_counter() - t0:.2f}s (nvcc {built.seconds:.2f}s)"
           f" {os.path.relpath(built.path)}", flush=True)
+    kernel = "?"
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+        m = re.search(r"(klt_(?:bidir|level)_kernel)ILb([01])E", line)
+        if "Compiling entry" in line and m:
+            kernel = f"{m.group(1)}<rot={m.group(2)}>"
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas: {kernel}: {line.split(':')[-1].strip()}",
+                  flush=True)
 
     t0 = time.perf_counter()
     tex = bench_scene.make_texture(0).to(dev)
     n = WARMUP + TIMED + QUAL + SPLIT
     frames = bench_scene.stereo_frames(tex, n)
+    x11 = bench_scene.STEP_M * 11
+    rolled = (bench_scene.render(tex, x11, roll=ROLL),
+              bench_scene.render(tex, x11 + bench_scene.BASELINE_M,
+                                 roll=ROLL))
     torch.cuda.synchronize()
     print(f"render: {n} stereo frames in {time.perf_counter() - t0:.2f}s",
           flush=True)
 
-    kres = kernel_phase(frames, dev)
+    kres = kernel_phase(frames, rolled, dev)
     agree_phase(dev)
+    level_launches = track_points_phase(frames, rolled, dev)
     launches = main_phase(frames, dev)
+    rot_launches = rotation_phase(frames, dev)
+    mono_launches = mono_phase(tex, dev)
 
-    print(json.dumps({"kernels": [{
-        "name": "klt_bidir", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(r["err"] for r in kres.values()),
-        "ms": kres["temporal"]["ms"], "plain_ms": kres["temporal"]["plain_ms"],
-        "ms_stereo": kres["stereo"]["ms"],
-        "plain_ms_stereo": kres["stereo"]["plain_ms"]}]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_entry("klt_bidir", launches,
+                     [kres["temporal"], kres["stereo"]],
+                     {"ms_stereo": kres["stereo"]["ms"],
+                      "plain_ms_stereo": kres["stereo"]["plain_ms"],
+                      "bound_ms_stereo": kres["stereo"]["bound_ms"],
+                      "launches_mono": mono_launches}),
+        kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
+        kernel_entry("klt_level", level_launches,
+                     [kres["level0"], kres["level3"], kres["level0_rot"],
+                      kres["level3_rot"]],
+                     {f"{k}_{lvl}": kres[lvl][k]
+                      for lvl in ("level3", "level0_rot", "level3_rot")
+                      for k in ("ms", "plain_ms", "bound_ms")}),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,11 +3,17 @@
 Module paths mirror the JAX package: the counterpart of ``rsvio_tpu/x/y.py``
 is ``rsvio_tpu_torch/x/y.py``. The JAX package is the reference every
 ported function is tested against; this package imports neither JAX nor
-``rsvio_tpu`` at run time.
+``rsvio_tpu`` at run time. Functions that make tensors default to
+``device="cuda"``; the CPU is asked for explicitly.
 
-Ported so far (the stereo VO main path): ``ops.lie``, ``ops.cameras``,
-``ops.projection``, ``ops.pyramid``, ``ops.detect``, ``ops.klt`` with the
-hand-written Hopper kernel ``ops.cuda.klt_kernel`` (source in ``csrc/``),
+Ported so far: the stereo VO main path (``ops.lie``, ``ops.cameras``,
+``ops.projection``, ``ops.pyramid``, ``ops.detect``, ``ops.klt``,
 ``models.frontend``, ``models.pnp``, ``models.ba``, ``models.estimator``,
-``utils.precision``, ``utils.convert`` and ``data.bench_scene``.
+``utils.precision``, ``utils.convert``, ``data.bench_scene``) and the
+tracker family (SE2 rotation tracking, ``ops.klt.track_points``, the gather
+KLT route with ``ops.interp`` bilinear / bicubic sampling, the ratio
+pyramid, Shi-Tomasi and NMS detection, ``models.mono_tracker``). Both TPU
+kernels of the JAX package have hand-written Hopper counterparts in
+``ops.cuda.klt_kernel`` (source in ``csrc/``): the fused bidirectional KLT
+``klt_bidir`` (translation and rotation) and the per-level ``klt_level``.
 """

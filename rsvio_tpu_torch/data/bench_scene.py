@@ -14,6 +14,8 @@ pixel for pixel, but it is the same kind of scene.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -71,15 +73,20 @@ def remap_bilinear(tex, mx, my):
 
 def render(tex, cam_x: float, cam_y: float = 0.0, shape=(H, W),
            fx: float = FX, plane_z: float = PLANE_Z,
-           scale: float = TEX_SCALE, offset: float = TEX_OFFSET):
+           scale: float = TEX_SCALE, offset: float = TEX_OFFSET,
+           roll: float = 0.0):
     """(H, W) float32 image of the plane seen by a camera at (cam_x, cam_y),
-    on tex's device."""
+    rolled by `roll` radians about its optical axis, on tex's device."""
     h, w = shape
     dev = tex.device
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    x = (u - w / 2) / fx
-    y = (v - h / 2) / fx
+    du, dv = u - w / 2, v - h / 2
+    if roll:
+        c, s = math.cos(roll), math.sin(roll)
+        du, dv = c * du - s * dv, s * du + c * dv
+    x = du / fx
+    y = dv / fx
     mx = (x * plane_z + cam_x) * scale + offset
     my = (y * plane_z + cam_y) * scale + offset
     return remap_bilinear(tex, mx, my)
@@ -93,7 +100,7 @@ def stereo_frames(tex, n_frames: int, step_m: float = STEP_M,
             for k in range(n_frames)]
 
 
-def make_rig(device="cpu", shape=(H, W), fx: float = FX,
+def make_rig(device="cuda", shape=(H, W), fx: float = FX,
              baseline_m: float = BASELINE_M):
     """The scene's stereo rig as the port's CameraRig."""
     from ..models.estimator import make_rig as _make_rig

@@ -136,7 +136,7 @@ class EstimatorState(NamedTuple):
 
 
 def init_state(cfg: EstimatorConfig, dtype=torch.float32,
-               device="cpu") -> EstimatorState:
+               device="cuda") -> EstimatorState:
     N = cfg.frontend.capacity
     W = cfg.window_size
     shapes = pyramid.pyramid_shapes(tuple(cfg.image_shape),

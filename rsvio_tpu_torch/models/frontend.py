@@ -1,15 +1,16 @@
 """Stereo feature-tracking frontend: fixed-capacity masked feature table and
 the per-frame update.
 
-Port of rsvio_tpu/models/frontend.py in grid detection mode. Per frame:
-temporal bidirectional tracking of both cameras (one kernel launch), FAST-9
-scoring and grid selection on cam0, stereo matching of the candidates
-cam0 -> cam1 (a second launch), and births into free table slots. All shapes
-are static; births compact into free slots through a stable argsort and a
-cumsum, with no data-dependent shapes and no host sync.
+Port of rsvio_tpu/models/frontend.py. Per frame: temporal bidirectional
+tracking of both cameras (one kernel launch on the kernel route), FAST-9
+scoring and grid selection (``detect_mode="grid"``) or block NMS
+(``"nms"``) on cam0, stereo matching of the candidates cam0 -> cam1 (a
+second launch), and births into free table slots. All shapes are static;
+births compact into free slots through a stable argsort and a cumsum, with
+no data-dependent shapes and no host sync.
 
-Not ported yet: ``detect_mode="nms"`` and the starvation floor
-(``relax_floor_below > 0``); both raise (ROADMAP A6, A13).
+Not ported yet: the starvation floor (``relax_floor_below > 0``); it raises
+(ROADMAP A6, A13).
 """
 
 from __future__ import annotations
@@ -41,15 +42,15 @@ class FrontendConfig(NamedTuple):
 
 
 def check_config(cfg: FrontendConfig) -> None:
-    """Raise for options the port does not implement yet."""
-    if cfg.detect_mode != "grid":
-        raise NotImplementedError(
-            "detect_mode='nms' is not ported yet (ROADMAP A15)")
+    """Raise for options the port does not implement yet and for unknown
+    values."""
+    if cfg.detect_mode not in ("grid", "nms"):
+        raise ValueError(f"unknown detect_mode {cfg.detect_mode!r}")
     if cfg.relax_floor_below > 0:
         raise NotImplementedError(
             "the starvation floor (relax_floor_below > 0) is not ported yet "
             "(ROADMAP A6, A13)")
-    klt.check_config(cfg.klt)
+    klt.resolve_backend(cfg.klt)
 
 
 class FeatureTable(NamedTuple):
@@ -66,7 +67,7 @@ class FeatureTable(NamedTuple):
 
 
 def init_table(capacity: int, dtype=torch.float32,
-               device="cpu") -> FeatureTable:
+               device="cuda") -> FeatureTable:
     N = capacity
     eye = torch.eye(2, dtype=dtype, device=device).expand(N, 2, 2).clone()
     return FeatureTable(
@@ -160,12 +161,18 @@ def frontend_step(table: FeatureTable, pyr0_prev, pyr1_prev, pyr0, pyr1,
         pos0=pos0, pos1=pos1, A0=A0, A1=A1, alive=survived,
         age=torch.where(survived, table.age + 1, torch.zeros_like(table.age)))
 
-    # (c) detect new corners in unoccupied cells of cam0 level 0.
+    # (c) detect new corners on cam0 level 0, away from live tracks.
     score = detect.fast_score(pyr0[0])
-    cand_xy, cand_ok = detect.select_grid_features(
-        score, table.pos0, table.alive, cfg.cell_size,
-        margin=cfg.detect_margin, min_score=cfg.min_score,
-        max_per_cell=cfg.max_per_cell)
+    if cfg.detect_mode == "nms":
+        cand_xy, cand_ok = detect.nms_select(
+            score, table.pos0, table.alive, cfg.nms_radius,
+            margin=cfg.detect_margin, min_score=cfg.min_score,
+            max_new=cfg.nms_max_new)
+    else:
+        cand_xy, cand_ok = detect.select_grid_features(
+            score, table.pos0, table.alive, cfg.cell_size,
+            margin=cfg.detect_margin, min_score=cfg.min_score,
+            max_per_cell=cfg.max_per_cell)
 
     # (d) stereo-match candidates cam0 -> cam1 (second launch).
     cand_pos1, cand_A1, stereo_ok = klt.track_points_bidirectional(

@@ -23,7 +23,7 @@ class MargPrior(NamedTuple):
 
 
 def empty_prior(W: int, B: int, dtype=torch.float32,
-                device="cpu") -> MargPrior:
+                device="cuda") -> MargPrior:
     return MargPrior(
         H=torch.zeros((W * B, W * B), dtype=dtype, device=device),
         g=torch.zeros(W * B, dtype=dtype, device=device),

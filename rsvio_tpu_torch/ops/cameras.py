@@ -23,7 +23,7 @@ _UNDISTORT_ITERS = 8
 
 
 def pack_params(kind: str, intrinsics, distortion, dtype=torch.float32,
-                device="cpu"):
+                device="cuda"):
     """(PARAM_WIDTH,) parameter vector from config-style lists; missing
     distortion entries default to 0 (EUCM: alpha 0.5, beta 1.0)."""
     kind = kind.lower()

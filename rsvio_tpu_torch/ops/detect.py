@@ -1,19 +1,22 @@
-"""Feature detection: whole-image FAST-9 margin score + grid-cell selection.
+"""Feature detection: whole-image FAST-9 and Shi-Tomasi scores, grid-cell
+selection and block non-max suppression.
 
-Port of the grid path of rsvio_tpu/ops/detect.py. The starvation path
-(``cell_occupancy=False``, ROADMAP A6), ``nms_select`` and
-``shi_tomasi_score`` (ROADMAP A15) are not ported yet.
+Port of rsvio_tpu/ops/detect.py. The starvation form of grid selection
+(``cell_occupancy=False``, ROADMAP A6) is not ported yet and raises.
 
 Integer semantics follow the reference exactly: float floor division is
 ``torch.div(..., rounding_mode="floor")``, float->int conversion truncates
 toward zero like ``.astype(int32)``, ``torch.round`` rounds half to even like
 ``jnp.round`` and ``torch.argmax`` returns the first maximum like
-``jnp.argmax``.
+``jnp.argmax``. ``nms_select`` ranks its peaks by (score descending, linear
+index ascending) with a stable sort: the order ``lax.top_k`` gives on ties,
+which ``torch.topk`` does not promise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 # Bresenham circle of radius 3 (16 ring offsets, (dy, dx)), clockwise from
 # the top.
@@ -58,6 +61,82 @@ def fast_score(img):
     xx = torch.arange(W, device=img.device)[None, :]
     interior = (yy >= 3) & (yy < H - 3) & (xx >= 3) & (xx < W - 3)
     return torch.where(interior, score, torch.zeros_like(score))
+
+
+def _box3(img):
+    """3x3 box filter, edge-replicated."""
+    up = torch.cat([img[:1], img[:-1]], dim=0)
+    dn = torch.cat([img[1:], img[-1:]], dim=0)
+    v = up + img + dn
+    lf = torch.cat([v[:, :1], v[:, :-1]], dim=1)
+    rt = torch.cat([v[:, 1:], v[:, -1:]], dim=1)
+    return (lf + v + rt) / 9.0
+
+
+def shi_tomasi_score(img):
+    """Min-eigenvalue (Shi-Tomasi) score per pixel: central-difference
+    gradients (zero outside the image), 3x3 box-smoothed structure tensor,
+    0.5 (trace - sqrt(trace^2 - 4 det))."""
+    gx = (_shift2(img, 0, 1) - _shift2(img, 0, -1)) * 0.5
+    gy = (_shift2(img, 1, 0) - _shift2(img, -1, 0)) * 0.5
+    ixx = _box3(gx * gx)
+    iyy = _box3(gy * gy)
+    ixy = _box3(gx * gy)
+    tr = ixx + iyy
+    det = ixx * iyy - ixy * ixy
+    disc = torch.sqrt(torch.clamp(tr * tr - 4.0 * det, min=0.0))
+    return 0.5 * (tr - disc)
+
+
+def _max_pool(x, k: int):
+    """Max over the k x k window centered on each pixel, -inf outside
+    (reduce_window max with SAME padding)."""
+    return F.max_pool2d(x[None, None], k, stride=1, padding=k // 2)[0, 0]
+
+
+def nms_select(score, occupied_xy, occupied_mask, radius: int,
+               margin: int = 19, min_score: float = 10.0, max_new: int = 128):
+    """Block non-max suppression with min-distance suppression against live
+    tracks.
+
+    A pixel is a peak if it is the maximum of its (2 radius + 1)^2 window,
+    above min_score, inside the border margin and not at a live track;
+    live tracks enter the window maxima as the largest float, so no peak
+    lies within `radius` of one. Ties inside a window keep the lowest linear
+    index. Returns (cand_xy (max_new, 2) float (x, y), cand_ok (max_new,)),
+    score-descending.
+    """
+    H, W = score.shape
+    dev = score.device
+    big = torch.finfo(score.dtype).max
+    occ_x = torch.clamp(torch.round(occupied_xy[:, 0]).to(torch.int64),
+                        0, W - 1)
+    occ_y = torch.clamp(torch.round(occupied_xy[:, 1]).to(torch.int64),
+                        0, H - 1)
+    inject = torch.zeros(H * W, dtype=score.dtype, device=dev).scatter_reduce(
+        0, occ_y * W + occ_x,
+        torch.where(occupied_mask, big, 0.0).to(score.dtype),
+        reduce="amax").reshape(H, W)
+    k = 2 * radius + 1
+    pooled = _max_pool(torch.maximum(score, inject), k)
+
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    in_border = ((yy >= margin) & (yy < H - margin)
+                 & (xx >= margin) & (xx < W - margin))
+    pre_peak = ((score >= pooled) & (score > min_score) & in_border
+                & (inject <= 0))
+    neg_inf = torch.full_like(score, -torch.inf)
+    lin = yy * W + xx
+    neg_idx = torch.where(pre_peak, (-lin).to(score.dtype), neg_inf)
+    is_peak = pre_peak & (neg_idx >= _max_pool(neg_idx, k))
+
+    flat = torch.where(is_peak, score, neg_inf).reshape(-1)
+    vals, idx = torch.sort(flat, descending=True, stable=True)
+    vals, idx = vals[:max_new], idx[:max_new]
+    cand_xy = torch.stack([(idx % W).to(score.dtype),
+                           (idx // W).to(score.dtype)], dim=1)
+    return cand_xy, vals > -torch.inf
 
 
 def select_grid_features(score, occupied_xy, occupied_mask, cell_size: int,

@@ -6,7 +6,8 @@ function takes leading batch dimensions: ``w`` is (..., 3), ``R`` (..., 3, 3),
 ``T`` (..., 4, 4). Small-angle branches stay branchless (``torch.where`` on
 safe operands), with the same Taylor coefficients and threshold.
 
-Quaternions and SE(2) are not on the main path and are not ported yet.
+SE(2) has ``se2_exp``, for the gather KLT path's patch warps. Quaternions
+and ``se2_log`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -119,3 +120,29 @@ def rotation_angle(R):
     """Geodesic rotation angle in radians."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     return torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# SE(2) — KLT patch warps. Tangent [tx, ty, theta] -> 3x3 affine matrix.
+# ---------------------------------------------------------------------------
+
+def se2_exp(xi):
+    """(..., 3) tangent [tx, ty, theta] -> (..., 3, 3), with the small-angle
+    Taylor branch of the V matrix (a = sin(t)/t, b = (1-cos(t))/t)."""
+    tx, ty, theta = xi[..., 0], xi[..., 1], xi[..., 2]
+    theta_sq = theta * theta
+    sin_t = torch.sin(theta)
+    cos_t = torch.cos(theta)
+    t_safe = torch.where(theta_sq < _EPS, torch.ones_like(theta), theta)
+    a = _where_small(theta_sq, 1.0 - theta_sq / 6.0, sin_t / t_safe)
+    b = _where_small(theta_sq, theta / 2.0 - theta_sq * theta / 24.0,
+                     (1.0 - cos_t) / t_safe)
+    x = a * tx - b * ty
+    y = b * tx + a * ty
+    one = torch.ones_like(tx)
+    zero = torch.zeros_like(tx)
+    return torch.stack([
+        torch.stack([cos_t, -sin_t, x], dim=-1),
+        torch.stack([sin_t, cos_t, y], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)

@@ -31,11 +31,11 @@ def _fields(cls, src, fn):
     return cls(**{f: fn(getattr(src, f, None)) for f in cls._fields})
 
 
-def rig_from_numpy(rig, device="cpu") -> CameraRig:
+def rig_from_numpy(rig, device="cuda") -> CameraRig:
     return _fields(CameraRig, rig, lambda a: _t(a, device))
 
 
-def state_from_numpy(state, device="cpu") -> EstimatorState:
+def state_from_numpy(state, device="cuda") -> EstimatorState:
     """JAX EstimatorState with numpy leaves -> the port's EstimatorState on
     `device`."""
     def conv(name, v):

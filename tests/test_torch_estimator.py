@@ -17,6 +17,8 @@ Tolerances:
     float fields within 1e-4 (one step cannot compound).
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,10 +31,14 @@ from rsvio_tpu.models import frontend as jfe
 from rsvio_tpu.models import pnp as jpnp
 from rsvio_tpu.ops import cameras as jcam
 from rsvio_tpu.ops import klt as jklt
+from rsvio_tpu_torch.data import bench_scene
 from rsvio_tpu_torch.models import ba as tba
 from rsvio_tpu_torch.models import estimator as test_
 from rsvio_tpu_torch.models import frontend as tfe
+from rsvio_tpu_torch.models import marginalization as tmarg
+from rsvio_tpu_torch.models import mono_tracker as tmono
 from rsvio_tpu_torch.models import pnp as tpnp
+from rsvio_tpu_torch.ops import cameras as tcam
 from rsvio_tpu_torch.ops import klt as tklt
 from rsvio_tpu_torch.utils import convert
 
@@ -137,8 +143,8 @@ def test_state_and_output_fields_equal():
 
 def test_sequence_matches_jax(jax_run, torch_step):
     """~10 frames through both steps from the same initial state."""
-    rig = convert.rig_from_numpy(jax_run["rig"])
-    state = test_.init_state(_torch_cfg())
+    rig = convert.rig_from_numpy(jax_run["rig"], device="cpu")
+    state = test_.init_state(_torch_cfg(), device="cpu")
     saw_ba = False
     for k, (a, b) in enumerate(_frames()):
         state, out = torch_step(state, rig, torch.from_numpy(a),
@@ -188,8 +194,8 @@ def test_one_step_from_converted_state(jax_run, torch_step, kind):
     ks = [k for k in range(2, N_FRAMES) if want(outs[k])]
     assert ks, f"the sequence has no {kind} frame"
     k = ks[0]
-    state = convert.state_from_numpy(jax_run["states"][k])
-    rig = convert.rig_from_numpy(jax_run["rig"])
+    state = convert.state_from_numpy(jax_run["states"][k], device="cpu")
+    rig = convert.rig_from_numpy(jax_run["rig"], device="cpu")
     a, b = _frames()[k]
     new, out = torch_step(state, rig, torch.from_numpy(a), torch.from_numpy(b))
     for f in FLAGS:
@@ -199,7 +205,7 @@ def test_one_step_from_converted_state(jax_run, torch_step, kind):
 
 def test_convert_round_trip(jax_run):
     sj = jax_run["states"][5]
-    st = convert.state_from_numpy(sj)
+    st = convert.state_from_numpy(sj, device="cpu")
     assert st.table.alive.dtype == torch.bool
     assert st.kf_count.dtype == torch.int32 and st.kf_count.dim() == 0
     _compare_states(convert.state_to_numpy(st), sj)
@@ -208,8 +214,8 @@ def test_convert_round_trip(jax_run):
 def test_split_step_matches_fused_step(torch_step):
     cfg = _torch_cfg()
     split = test_.make_estimator_split_step(cfg)
-    rig = convert.rig_from_numpy(_np(_jax_rig()))
-    s1 = s2 = test_.init_state(cfg)
+    rig = convert.rig_from_numpy(_np(_jax_rig()), device="cpu")
+    s1 = s2 = test_.init_state(cfg, device="cpu")
     for a, b in _frames()[:5]:
         a, b = torch.from_numpy(a), torch.from_numpy(b)
         s1, o1 = torch_step(s1, rig, a, b)
@@ -233,16 +239,8 @@ UNPORTED = [
     pytest.param(dict(cam_kind_l="eucm"), id="eucm"),
     pytest.param(dict(track_before_full=False), id="track_before_full"),
     pytest.param(dict(pnp=tpnp.PnPConfig(ransac_hypotheses=16)), id="ransac"),
-    pytest.param(dict(frontend=tfe.FrontendConfig(detect_mode="nms")),
-                 id="detect_nms"),
     pytest.param(dict(frontend=tfe.FrontendConfig(relax_floor_below=40)),
                  id="starvation_floor"),
-    pytest.param(dict(frontend=tfe.FrontendConfig(
-        klt=tklt.KLTConfig(track_rotation=True))), id="track_rotation"),
-    pytest.param(dict(frontend=tfe.FrontendConfig(
-        klt=tklt.KLTConfig(interpolation="bicubic"))), id="bicubic"),
-    pytest.param(dict(frontend=tfe.FrontendConfig(
-        klt=tklt.KLTConfig(backend="xla"))), id="klt_gather_path"),
 ]
 
 
@@ -250,3 +248,104 @@ UNPORTED = [
 def test_unported_options_raise(opt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         test_.make_estimator_step(test_.EstimatorConfig(**opt))
+
+
+TRACKER_OPTIONS = [
+    pytest.param(dict(detect_mode="nms", nms_radius=8, nms_max_new=24),
+                 dict(), id="detect_nms"),
+    pytest.param(dict(), dict(track_rotation=True), id="track_rotation"),
+    pytest.param(dict(), dict(interpolation="bicubic"), id="bicubic"),
+    pytest.param(dict(), dict(backend="xla"), id="klt_gather_path"),
+]
+
+
+@pytest.mark.parametrize("fe_opt,klt_opt", TRACKER_OPTIONS)
+def test_tracker_options_run(fe_opt, klt_opt):
+    """The tracker options the port now implements run through the whole
+    step: tracks survive, the pose moves along +x and stays finite."""
+    base = _torch_cfg()
+    fe = base.frontend._replace(klt=base.frontend.klt._replace(**klt_opt),
+                                **fe_opt)
+    cfg = base._replace(frontend=fe)
+    step = test_.make_estimator_step(cfg)
+    rig = convert.rig_from_numpy(_np(_jax_rig()), device="cpu")
+    state = test_.init_state(cfg, device="cpu")
+    for a, b in _frames()[:5]:
+        state, out = step(state, rig, torch.from_numpy(a),
+                          torch.from_numpy(b))
+    assert int(out.n_tracked) >= 5
+    assert bool(torch.isfinite(out.T_W_B).all())
+    assert float(out.T_W_B[0, 3]) > 0.01
+
+
+@pytest.fixture(scope="module")
+def jax_nms_run():
+    """JAX outputs of each frame with NMS detection."""
+    cfg = _jax_cfg()
+    cfg = cfg._replace(frontend=cfg.frontend._replace(
+        detect_mode="nms", nms_radius=8, nms_max_new=24))
+    step = jest.make_estimator_step(cfg)
+    rig = _jax_rig()
+    state = jest.init_state(cfg)
+    outs = []
+    for a, b in _frames()[:6]:
+        state, out = step(state, rig, jnp.asarray(a), jnp.asarray(b))
+        outs.append(_np(out))
+    return outs
+
+
+def test_nms_sequence_matches_jax(jax_nms_run):
+    """The frontend's NMS detection mode over 6 frames of the step."""
+    cfg = _torch_cfg()
+    cfg = cfg._replace(frontend=cfg.frontend._replace(
+        detect_mode="nms", nms_radius=8, nms_max_new=24))
+    step = test_.make_estimator_step(cfg)
+    rig = convert.rig_from_numpy(_np(_jax_rig()), device="cpu")
+    state = test_.init_state(cfg, device="cpu")
+    for k, (a, b) in enumerate(_frames()[:6]):
+        state, out = step(state, rig, torch.from_numpy(a),
+                          torch.from_numpy(b))
+        oj = jax_nms_run[k]
+        for f in FLAGS:
+            assert int(getattr(out, f)) == int(getattr(oj, f)), (k, f)
+        dt, dr = _pose_err(out.T_W_B.numpy(), oj.T_W_B)
+        assert dt <= POSE_TOL and dr <= POSE_TOL, (k, dt, dr)
+    assert int(out.n_tracked) >= 5
+
+
+def _default_device_calls():
+    """Each entry point whose device defaults to CUDA, called with that
+    default on CPU-made inputs."""
+    cfg = _torch_cfg()
+    rig_np = _np(_jax_rig())
+    state_np = convert.state_to_numpy(test_.init_state(cfg, device="cpu"))
+    return {
+        "init_state": (test_.init_state, lambda: test_.init_state(cfg)),
+        "init_table": (tfe.init_table, lambda: tfe.init_table(8)),
+        "empty_prior": (tmarg.empty_prior, lambda: tmarg.empty_prior(4, 6)),
+        "make_rig": (bench_scene.make_rig, lambda: bench_scene.make_rig()),
+        "rig_from_numpy": (convert.rig_from_numpy,
+                           lambda: convert.rig_from_numpy(rig_np)),
+        "state_from_numpy": (convert.state_from_numpy,
+                             lambda: convert.state_from_numpy(state_np)),
+        "pack_params": (tcam.pack_params, lambda: tcam.pack_params(
+            tcam.PINHOLE_RADTAN, [1.0, 1.0, 0.0, 0.0], [])),
+        "init_mono_table": (tmono.init_mono_table,
+                            lambda: tmono.init_mono_table(8)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "init_state", "init_table", "empty_prior", "make_rig", "rig_from_numpy",
+    "state_from_numpy", "pack_params", "init_mono_table"])
+def test_entry_points_default_to_cuda(name):
+    """Entry points run on the card unless the caller asks for the CPU:
+    their device default is CUDA, and without a card the default raises
+    rather than falling back to the CPU."""
+    fn, call = _default_device_calls()[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert call() is not None
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()

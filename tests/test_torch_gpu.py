@@ -5,9 +5,11 @@ that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-(``--noconftest`` because the suite's conftest.py imports JAX.) The kernel
-is compared with its plain PyTorch version on the same CUDA tensors: ``ok``
-equal and positions within 1e-3 px, as in tests/test_torch_klt.py.
+(``--noconftest`` because the suite's conftest.py imports JAX.) Each
+kernel (``klt_bidir`` in both variants, ``klt_level`` in both variants) is
+compared with its plain PyTorch version on the same CUDA tensors: ``ok``
+equal, positions within 1e-3 px and angles within 1e-4 rad, as in
+tests/test_torch_klt.py.
 """
 
 import numpy as np
@@ -17,11 +19,12 @@ import torch
 from rsvio_tpu_torch.data import bench_scene
 from rsvio_tpu_torch.models import estimator as est
 from rsvio_tpu_torch.models.frontend import FrontendConfig
-from rsvio_tpu_torch.ops import pyramid
+from rsvio_tpu_torch.ops import klt, pyramid
 from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 from rsvio_tpu_torch.ops.klt import KLTConfig
 
 POS_TOL = 1e-3
+THETA_TOL = 1e-4
 SHAPE = (72, 104)
 
 
@@ -32,14 +35,21 @@ def dev():
     return torch.device("cuda")
 
 
-def _packed(dev, shifts, seed=0, levels=3):
+def _pyramids(dev, shifts, seed=0, levels=3, roll=0.0):
+    """Pyramids of renders at x offsets `shifts`; all but the first rolled
+    by `roll` rad."""
     tex = bench_scene.make_texture(seed, size=512,
                                    octaves=((90.0, 24), (60.0, 96))).to(dev)
-    imgs = [bench_scene.render(tex, dx, 0.2 * dx, shape=SHAPE, fx=120.0,
-                               plane_z=3.0, scale=40.0, offset=200.0)
-            for dx in shifts]
-    return [kk.pack_pyramids([pyramid.build_pyramid(im, levels)])
-            for im in imgs]
+    return [pyramid.build_pyramid(
+        bench_scene.render(tex, dx, 0.2 * dx, shape=SHAPE, fx=120.0,
+                           plane_z=3.0, scale=40.0, offset=200.0,
+                           roll=roll if k else 0.0), levels)
+        for k, dx in enumerate(shifts)]
+
+
+def _packed(dev, shifts, seed=0, levels=3, roll=0.0):
+    return [kk.pack_pyramids([p])
+            for p in _pyramids(dev, shifts, seed, levels, roll)]
 
 
 def _points(dev, n=64, seed=1):
@@ -55,13 +65,16 @@ def _points(dev, n=64, seed=1):
             torch.zeros(n, dtype=torch.int32, device=dev))
 
 
-def _agree(a, b):
-    pk, _, okk = a
-    pr, _, okr = b
+def _agree(a, b, failed_keep_source=True):
+    pk, thk, okk = a
+    pr, thr, okr = b
     assert torch.equal(okk, okr)
     assert float((pk[okk] - pr[okk]).abs().max()) <= POS_TOL
-    # Failed features keep their (possibly non-finite) source position.
-    assert torch.equal(torch.nan_to_num(pk[~okk]), torch.nan_to_num(pr[~okk]))
+    assert float((thk[okk] - thr[okk]).abs().max()) <= THETA_TOL
+    if failed_keep_source:
+        # Failed features keep their (possibly non-finite) source position.
+        assert torch.equal(torch.nan_to_num(pk[~okk]),
+                           torch.nan_to_num(pr[~okk]))
 
 
 @pytest.mark.gpu
@@ -82,6 +95,85 @@ def test_kernel_matches_plain_version(dev, tolerant, mode, lam):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tolerant,mode,lam", [
+    (True, "lssd", 0.0), (False, "ssd", 0.5)])
+def test_rotation_kernel_matches_plain_version(dev, tolerant, mode, lam):
+    """K1-rot on a pair rolled by 0.05 rad (2.9 deg)."""
+    (src, dims), (dst, _) = _packed(dev, [0.0, 0.01], roll=0.05)
+    pos, alive, cam = _points(dev)
+    kw = dict(max_iterations=10, coarse_tolerant=tolerant,
+              residual_mode=mode, lm_lambda=lam, with_rotation=True)
+    before = (kk.klt_bidir.launches, kk.klt_bidir.rot_launches)
+    out = kk.klt_bidir(src, dst, dims, pos, alive, cam, **kw)
+    torch.cuda.synchronize()
+    assert (kk.klt_bidir.launches, kk.klt_bidir.rot_launches) == (
+        before[0], before[1] + 1)
+    ref = kk.klt_bidir_reference(src, dst, dims, pos, alive, cam, **kw)
+    _agree(out, ref)
+    assert int(out[2].sum()) >= 20
+    assert float(out[1][out[2]].mean()) < -0.03, "the roll is recovered"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("lvl", [0, 2])
+def test_level_kernel_matches_plain_version(dev, rot, lvl):
+    """K2 at one level, from perturbed start positions and angles (inside
+    the theta gate), and from a start angle far outside it."""
+    p0, p1 = _pyramids(dev, [0.0, 0.01], roll=0.05 if rot else 0.0)
+    src, dst = p0[lvl][None].contiguous(), p1[lvl][None].contiguous()
+    pos, alive, cam = _points(dev)
+    pos = pos / 2.0 ** lvl
+    gen = torch.Generator().manual_seed(lvl)
+    start = (pos + torch.randn(pos.shape, generator=gen).to(dev) * 0.4)
+    theta0 = (torch.rand(pos.shape[0], generator=gen) * 0.4 - 0.2).to(dev)
+    theta0[-4:] = 2.5          # beyond the gate: sampling stays exact
+    for mode in ("lssd", "ssd"):
+        kw = dict(max_iterations=10, residual_mode=mode, with_rotation=rot)
+        args = (src, dst, pos, start.contiguous(), theta0, alive, cam)
+        before = kk.klt_level.launches
+        out = kk.klt_level(*args, **kw)
+        torch.cuda.synchronize()
+        assert kk.klt_level.launches == before + 1
+        ref = kk.klt_level_reference(*args, **kw)
+        # A failed level keeps its last Gauss-Newton position, which is not
+        # compared; a dead feature keeps its start exactly.
+        _agree(out, ref, failed_keep_source=False)
+        dead = ~alive
+        assert torch.equal(out[0][dead], start[dead])
+        assert torch.equal(out[1][dead], theta0[dead])
+        assert int(out[2].sum()) >= 15
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+def test_track_points_launches_once_per_level(dev, rot):
+    """track_points on the kernel route: one K2 launch per level, and the
+    forward + backward composition agrees with one fused K1 launch."""
+    levels = 3
+    p0, p1 = _pyramids(dev, [0.0, 0.01], levels=levels,
+                       roll=0.03 if rot else 0.0)
+    pos, alive, _ = _points(dev)
+    pos, alive = pos[8:], alive[8:]
+    cfg = KLTConfig(levels=levels, max_iterations=10, track_rotation=rot)
+    n = pos.shape[0]
+    eye = torch.eye(2, device=dev).expand(n, 2, 2)
+    before = kk.klt_level.launches
+    pf, Af, okf = klt.track_points(p0, p1, pos, pos, eye, alive, cfg)
+    pb, _, okb = klt.track_points(p1, p0, pf, pos, Af.transpose(-1, -2), okf,
+                                  cfg)
+    torch.cuda.synchronize()
+    assert kk.klt_level.launches == before + 2 * levels
+    ok = okf & okb & (((pb - pos) ** 2).sum(dim=1) < cfg.bidir_threshold_sq)
+    p, A, ok1 = klt.track_points_bidirectional(p0, p1, pos, alive, cfg)
+    assert float((ok == ok1).float().mean()) >= 0.99
+    both = ok & ok1
+    assert float((p[both] - pf[both]).abs().max()) <= POS_TOL
+    assert float((A[both] - Af[both]).abs().max()) <= THETA_TOL
+    assert int(both.sum()) >= 20
+
+
+@pytest.mark.gpu
 def test_launch_count_and_empty_batch(dev):
     (src, dims), (dst, _) = _packed(dev, [0.0, 0.01])
     pos, alive, cam = _points(dev, n=16)
@@ -90,6 +182,12 @@ def test_launch_count_and_empty_batch(dev):
     kk.klt_bidir_reference(src, dst, dims, pos, alive, cam)
     assert kk.klt_bidir.launches == before + 1
     p, th, ok = kk.klt_bidir(src, dst, dims, pos[:0], alive[:0], cam[:0])
+    torch.cuda.synchronize()
+    assert p.shape == (0, 2) and ok.shape == (0,)
+    h, w = dims[0]
+    img = src[:, :h * w].reshape(1, h, w)
+    p, th, ok = kk.klt_level(img, img, pos[:0], pos[:0], th, alive[:0],
+                             cam[:0], with_rotation=True)
     torch.cuda.synchronize()
     assert p.shape == (0, 2) and ok.shape == (0,)
 

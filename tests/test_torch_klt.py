@@ -1,21 +1,26 @@
-"""Parity of the port's fused bidirectional KLT (kernel K1) with the JAX
-Pallas kernel.
+"""Parity of the port's fused KLT kernel's plain version with the JAX Pallas
+kernel K1 ``track_bidirectional_pyramid``, translation and
+``with_rotation`` (K2 ``track_level`` and the two-camera rotation batch:
+tests/test_torch_tracker.py and tests/test_torch_tracker_paths.py).
 
-The JAX side runs ``track_bidirectional_pyramid`` in interpret mode on the
-CPU, as the JAX package's own kernel tests do; the port runs
-``klt_bidir_reference``, the plain PyTorch version of its CUDA kernel, which
-is what the port's wrapper routes CPU tensors to. Inputs are shifted views
-of a seeded multi-scale texture, with features in the border band, outside
-the image and in dead slots.
+The JAX side runs the Pallas kernels in interpret mode on the CPU, as the JAX
+package's own kernel tests do; the port runs ``klt_bidir_reference`` and
+``klt_level_reference``, the plain PyTorch versions of its CUDA kernels,
+which is what the port's wrappers route CPU tensors to. Inputs are views of
+a seeded multi-scale texture (shifted, and for rotation also rolled by
+0.05 rad), with features in the border band, outside the image and in dead
+slots.
 
-Tolerance: ``ok`` must be equal and positions within 1e-3 px where ok. Both
-sides compute the same fp32 operations except for the order of the 256-term
-patch sums, which moves positions by ~1e-6 px (measured); 1e-3 px leaves
-room for one extra or one fewer Gauss-Newton step of a feature sitting on
-its convergence threshold.
+Tolerance: ``ok`` must be equal, positions within 1e-3 px and angles within
+1e-4 rad where ok. Both sides compute the same fp32 operations except for
+the order of the 256-term patch sums (and, with rotation, the cos/sin
+implementation), which moves positions by ~4e-6 px and angles by ~1e-7 rad
+(measured); the tolerances leave room for one extra or one fewer
+Gauss-Newton step of a feature sitting on its convergence threshold.
 
-The CUDA kernel itself is compared with the plain version by the ``gpu``
-test at the end, which needs a card and is skipped here.
+The CUDA kernels themselves are compared with the plain versions by the
+``gpu`` tests (here and in tests/test_torch_gpu.py), which need a card and
+are skipped here.
 """
 
 import numpy as np
@@ -35,16 +40,20 @@ torch.set_num_threads(2)
 
 H, W, LEVELS = 72, 104, 3
 POS_TOL = 1e-3
+THETA_TOL = 1e-4
+ROLL = 0.05
 
 
-def _views(seed, shifts):
+def _views(seed, shifts, roll=0.0):
     """Float32 (H, W) renders of one texture seen from x offsets `shifts`
-    (metres; 0.01 m = 1.2 px at these settings)."""
+    (metres; 0.01 m = 1.2 px at these settings), all but the first rolled
+    by `roll` rad."""
     tex = bench_scene.make_texture(seed, size=512,
                                    octaves=((90.0, 24), (60.0, 96)))
     return [bench_scene.render(tex, dx, 0.2 * dx, shape=(H, W), fx=120.0,
-                               plane_z=3.0, scale=40.0, offset=200.0).numpy()
-            for dx in shifts]
+                               plane_z=3.0, scale=40.0, offset=200.0,
+                               roll=roll if k else 0.0).numpy()
+            for k, dx in enumerate(shifts)]
 
 
 def _points(seed, n):
@@ -66,12 +75,15 @@ def _torch_pyr(img):
     return tpyr.build_pyramid(torch.from_numpy(img), LEVELS)
 
 
-def _compare(pj, okj, pt, okt, alive):
+def _compare(pj, okj, pt, okt, alive, thj=None, tht=None):
     pj, okj = np.asarray(pj), np.asarray(okj)
     pt, okt = pt.numpy(), okt.numpy()
     np.testing.assert_array_equal(okj, okt)
     assert okj.sum() >= 0.5 * alive.sum(), "too few tracks to compare"
     np.testing.assert_allclose(pt[okj], pj[okj], atol=POS_TOL, rtol=0)
+    if thj is not None:
+        np.testing.assert_allclose(tht.numpy()[okj], np.asarray(thj)[okj],
+                                   atol=THETA_TOL, rtol=0)
     # Failed features keep their source position on both sides.
     np.testing.assert_array_equal(pt[~okj], pj[~okj])
 
@@ -146,22 +158,56 @@ def test_stereo_entry_equals_two_single_calls():
     assert torch.equal(A0, torch.eye(2).expand_as(A0))
 
 
-def test_rotation_variant_raises():
+@pytest.mark.parametrize("tolerant,mode,lam", CASES)
+def test_rotation_variant_matches_pallas(tolerant, mode, lam):
+    """K1-rot: the SE2 variant on a pair rolled by 0.05 rad recovers the
+    roll and matches the Pallas kernel, angles included."""
+    img0, img1 = _views(1, [0.0, 0.01], roll=ROLL)
+    pts, alive = _points(2, 48)
+    kw = dict(max_iterations=10, conv_thresh_sq=1e-4, bidir_thresh_sq=0.4,
+              residual_mode=mode, lm_lambda=lam, with_rotation=True)
+    pj, thj, okj = track_bidirectional_pyramid(
+        _jax_pyr(img0), _jax_pyr(img1), jnp.asarray(pts), jnp.asarray(alive),
+        interpret=True, coarse_tolerant=tolerant, **kw)
+    src, dims = kk.pack_pyramids([_torch_pyr(img0)])
+    dst, _ = kk.pack_pyramids([_torch_pyr(img1)])
+    pt, tht, okt = kk.klt_bidir_reference(
+        src, dst, dims, torch.from_numpy(pts), torch.from_numpy(alive),
+        torch.zeros(len(pts), dtype=torch.int32), coarse_tolerant=tolerant,
+        **kw)
+    _compare(pj, okj, pt, okt, alive, thj, tht)
+    assert float(tht[okt].mean()) < -0.6 * ROLL, "the roll is recovered"
+    assert not okt[8:11].any(), "dead slots must stay dead"
+
+
+def test_rotation_variant_runs_and_bad_options_raise():
+    """Rotation, the gather route and bicubic sampling run; what no route
+    implements raises ValueError."""
     img = torch.from_numpy(_views(9, [0.0])[0])
     src, dims = kk.pack_pyramids([tpyr.build_pyramid(img, LEVELS)])
     pos = torch.full((3, 2), 30.0)
     args = (src, src, dims, pos, torch.ones(3, dtype=torch.bool),
             torch.zeros(3, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        kk.klt_bidir(*args, with_rotation=True)
-    with pytest.raises(NotImplementedError):
-        kk.klt_bidir_reference(*args, with_rotation=True)
+    for fn in (kk.klt_bidir, kk.klt_bidir_reference):
+        p, th, ok = fn(*args, with_rotation=True)
+        assert ok.all() and torch.equal(p, pos)   # identity track
+        assert torch.equal(th, torch.zeros(3))
     pyr = tpyr.build_pyramid(img, LEVELS)
-    for bad in (tklt.KLTConfig(levels=LEVELS, track_rotation=True),
-                tklt.KLTConfig(levels=LEVELS, backend="xla"),
-                tklt.KLTConfig(levels=LEVELS, interpolation="bicubic")):
-        with pytest.raises(NotImplementedError):
+    for good in (tklt.KLTConfig(levels=LEVELS, track_rotation=True),
+                 tklt.KLTConfig(levels=LEVELS, backend="xla"),
+                 tklt.KLTConfig(levels=LEVELS, interpolation="bicubic")):
+        p, A, ok = tklt.track_points_bidirectional(pyr, pyr, pos, args[4],
+                                                   good)
+        assert ok.all()
+        assert float((p - pos).abs().max()) <= POS_TOL
+    for bad in (tklt.KLTConfig(levels=LEVELS, backend="pallas",
+                               interpolation="bicubic"),
+                tklt.KLTConfig(levels=LEVELS, backend="triton"),
+                tklt.KLTConfig(levels=LEVELS, interpolation="nearest")):
+        with pytest.raises(ValueError):
             tklt.track_points_bidirectional(pyr, pyr, pos, args[4], bad)
+    with pytest.raises(ValueError):
+        kk.klt_bidir(*args, residual_mode="l1")
 
 
 def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
@@ -182,6 +228,46 @@ def test_wrapper_checks_inputs_and_counts_only_kernel_launches():
         kk.klt_bidir(src[:, :-1], src, dims, pos, alive, cam)
     with pytest.raises(ValueError):
         kk.klt_bidir(src, src, dims, pos.t().contiguous().t(), alive, cam)
+    # klt_level: one (C, H, W) level, level coordinates
+    h, w = dims[0]
+    lvl = src[:, :h * w].reshape(1, h, w)
+    theta = torch.zeros(4)
+    before = kk.klt_level.launches
+    p, th, ok = kk.klt_level(lvl, lvl, pos, pos, theta, alive, cam,
+                             with_rotation=True)
+    assert ok.all() and torch.equal(p, pos) and torch.equal(th, theta)
+    assert kk.klt_level.launches == before
+    with pytest.raises(ValueError):
+        kk.klt_level(src, src, pos, pos, theta, alive, cam)
+    with pytest.raises(TypeError):
+        kk.klt_level(lvl, lvl, pos, pos, theta.double(), alive, cam)
+    with pytest.raises(ValueError):
+        kk.klt_level(lvl, lvl[:, 1:], pos, pos, theta, alive, cam)
+
+
+@pytest.mark.parametrize("rot", [False, True])
+def test_plain_version_counts_the_pixels_it_reads(rot):
+    """work["touched"]: a template reads its 19x19 support in src, each
+    Gauss-Newton step its 17x17 support in dst (rotation at theta 0: the
+    same taps); a feature at a corner reads only the clamped pixels, a dead
+    one nothing. Images are distinct tensors, so each is keyed apart."""
+    img = torch.from_numpy(_views(14, [0.0])[0])[None]
+    dst = img.clone()
+    pos = torch.tensor([[40.3, 30.6], [1.0, 1.0], [60.0, 40.0]])
+    alive = torch.tensor([True, True, False])
+    work = {"templates": 0, "iterations": 0}
+    p, _, ok = kk.klt_level_reference(
+        img, dst, pos, pos, torch.zeros(3), alive,
+        torch.zeros(3, dtype=torch.int32), max_iterations=10,
+        with_rotation=rot, work=work)
+    assert bool(ok[0]) and not ok[1:].any()
+    assert float((p[0] - pos[0]).abs().max()) < 1e-3
+    # Corner feature: template rows/cols clamp to 0..10 (11 of 19 each);
+    # its patch fails the margin, so it takes no step.
+    assert work["templates"] == 2 and work["iterations"] == 1
+    touched = {k: int(m.sum()) for k, m in work["touched"].items()}
+    assert touched == {img.data_ptr(): 19 * 19 + 11 * 11,
+                       dst.data_ptr(): 17 * 17}
 
 
 @pytest.fixture

@@ -90,7 +90,8 @@ class TestLie:
 
 class TestCameras:
     def test_pack_params(self):
-        close(tcam.pack_params(tcam.PINHOLE_RADTAN, EUROC_INTR, EUROC_DIST),
+        close(tcam.pack_params(tcam.PINHOLE_RADTAN, EUROC_INTR, EUROC_DIST,
+                               device="cpu"),
               jcam.pack_params(jcam.PINHOLE_RADTAN, EUROC_INTR, EUROC_DIST),
               rtol=0, atol=0)
         with pytest.raises(NotImplementedError):
