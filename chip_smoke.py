@@ -9,13 +9,19 @@ them. Phases, each of which raises on failure:
   2. kernel  — runs each kernel and its plain PyTorch version on the same
                CUDA tensors and requires equal ok on >= 99% of rows,
                |dpos| <= 1e-3 px and |dtheta| <= 1e-4 rad where both are
-               ok; times both (CUDA events, median of 25):
+               ok; times both (CUDA events, median of 25: kernel_ms
+               and plain_ms with the host's launch inside the interval,
+               as in earlier runs; device_ms behind a GPU spin, the
+               kernel's device work only):
                K1 klt_bidir at both main-path shapes (temporal pass:
-               2 cameras x 256 slots; stereo match: 135 grid candidates),
-               K1-rot klt_bidir(with_rotation) at the temporal shape on a
-               pair whose second frame is rolled by 3 degrees, and K2
-               klt_level at pyramid levels 0 and 3, 512 features,
-               translation and rotation.
+               2 cameras x 256 slots; stereo match: 135 grid candidates)
+               and at 2 cameras x 1024 slots, K1-rot
+               klt_bidir(with_rotation) at the temporal shape on a pair
+               whose second frame is rolled by 3 degrees, and K2 klt_level
+               at pyramid levels 0 and 3, 512 features, translation and
+               rotation. Each line gives the longest per-feature chain of
+               dependent links (templates + Gauss-Newton steps, counted by
+               the plain version) and the kernel's device time per link.
   3. agree   — runs the port's estimator step on a small scene on the CPU
                (plain KLT) and on the GPU (kernels) and requires the poses
                to agree within 1e-3.
@@ -59,6 +65,7 @@ WARMUP, TIMED, QUAL, SPLIT = 6, 60, 20, 10
 ROT_TIMED = 30
 MONO_FRAMES, MONO_WARMUP = 40, 10
 KERNEL_RUNS = 25
+SPIN_CYCLES = 2_000_000   # GPU spin ahead of each timed run (~1 ms)
 POS_TOL = 1e-3
 THETA_TOL = 1e-4
 ROLL = 0.0524          # rad (3 degrees) between the K1-rot pair's frames
@@ -105,12 +112,21 @@ def gpu_name_and_power():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_median_ms(fn, runs=KERNEL_RUNS, warmup=3):
+def cuda_median_ms(fn, runs=KERNEL_RUNS, warmup=3, spin=False):
+    """Median over `runs` of the time between CUDA events recorded just
+    before and just after fn(). On an idle stream the interval also holds
+    the host's launch of fn's work. With `spin`, each run first holds the
+    stream with a ~1 ms GPU spin, so the host enqueues the start event and
+    fn's launches before the GPU reaches them: the interval holds the
+    device's work only (for a function that syncs inside, as the plain
+    versions do, the host time after its first sync too)."""
     import torch
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -168,8 +184,22 @@ def compare(name, out, ref, n):
     return agree, err, err_th
 
 
-def kernel_phase(frames, rolled, dev):
-    """Each kernel vs its plain version at the main-path shapes."""
+def chain_fields(device_ms, work):
+    """The longest per-feature chain of the run (templates + Gauss-Newton
+    steps, both directions, all levels; the plain version's work["chain"])
+    and the kernel's device time per link of it."""
+    max_chain = int(work["chain"].max())
+    return {"max_chain": max_chain,
+            "ns_per_link": device_ms * 1e6 / max(max_chain, 1)}
+
+
+def k1_cases(frames, rolled, dev):
+    """K1's inputs at the main-path shapes, by name: dicts of src, dst
+    (packed pyramids), pos, alive, cam and rot. "temporal": the temporal
+    pass, 2 cameras x 256 slots; "temporal2048": the same with 1024 slots
+    per camera; "stereo": the stereo match of frame 11's left grid
+    candidates; "temporal_rot": the temporal pass on a pair whose second
+    frame is rolled by ROLL."""
     import torch
     from rsvio_tpu_torch.ops import detect, pyramid
     from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
@@ -178,31 +208,43 @@ def kernel_phase(frames, rolled, dev):
     pyrs = [pyramid.build_pyramid(im, 6) for im in (l0, r0, l1, r1)]
     rot_pyrs = [pyramid.build_pyramid(im, 6) for im in rolled]
     gen = torch.Generator().manual_seed(0)
-    # Temporal pass: 256 slots per camera, cam1 at the plane's disparity.
-    p0 = torch.rand((256, 2), generator=gen) * torch.tensor([700.0, 430.0]) \
-        + torch.tensor([25.0, 25.0])
-    p1 = p0 - torch.tensor([458.0 * 0.11 / 5.0, 0.0])
-    pos512 = torch.cat([p0, p1]).to(dev)
-    cam512 = torch.cat([torch.zeros(256), torch.ones(256)]).to(
-        torch.int32).to(dev)
-    alive512 = torch.ones(512, dtype=torch.bool, device=dev)
-    temporal = dict(src=kk.pack_pyramids([pyrs[0], pyrs[1]]),
-                    dst=kk.pack_pyramids([pyrs[2], pyrs[3]]), pos=pos512,
-                    alive=alive512, cam=cam512, rot=False)
-    temporal_rot = dict(temporal, dst=kk.pack_pyramids(rot_pyrs), rot=True)
-    # Stereo match: the grid candidates of frame 11's left image.
+    src = kk.pack_pyramids([pyrs[0], pyrs[1]])
+    dst = kk.pack_pyramids([pyrs[2], pyrs[3]])
+    cases = {}
+    for n in (256, 1024):
+        # n slots per camera, cam1 at the plane's disparity.
+        p0 = torch.rand((n, 2), generator=gen) \
+            * torch.tensor([700.0, 430.0]) + torch.tensor([25.0, 25.0])
+        p1 = p0 - torch.tensor([458.0 * 0.11 / 5.0, 0.0])
+        cases[f"temporal{2 * n}"] = dict(
+            src=src, dst=dst, pos=torch.cat([p0, p1]).to(dev),
+            alive=torch.ones(2 * n, dtype=torch.bool, device=dev),
+            cam=torch.cat([torch.zeros(n), torch.ones(n)]).to(
+                torch.int32).to(dev), rot=False)
+    cases["temporal"] = cases.pop("temporal512")
+    cases["temporal_rot"] = dict(cases["temporal"],
+                                 dst=kk.pack_pyramids(rot_pyrs), rot=True)
     score = detect.fast_score(l1)
     cand, cand_ok = detect.select_grid_features(
         score, torch.zeros((1, 2), device=dev),
         torch.zeros(1, dtype=torch.bool, device=dev), 50)
-    stereo = dict(src=kk.pack_pyramids([pyrs[2]]),
-                  dst=kk.pack_pyramids([pyrs[3]]), pos=cand.contiguous(),
-                  alive=cand_ok.contiguous(),
-                  cam=torch.zeros(cand.shape[0], dtype=torch.int32,
-                                  device=dev), rot=False)
+    cases["stereo"] = dict(
+        src=kk.pack_pyramids([pyrs[2]]), dst=kk.pack_pyramids([pyrs[3]]),
+        pos=cand.contiguous(), alive=cand_ok.contiguous(),
+        cam=torch.zeros(cand.shape[0], dtype=torch.int32, device=dev),
+        rot=False)
+    return cases, pyrs, rot_pyrs
+
+
+def kernel_phase(frames, rolled, dev):
+    """Each kernel vs its plain version at the main-path shapes."""
+    import torch
+    from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
+
+    cases, pyrs, rot_pyrs = k1_cases(frames, rolled, dev)
     results = {}
-    for name, c in (("temporal", temporal), ("stereo", stereo),
-                    ("temporal_rot", temporal_rot)):
+    for name in ("temporal", "stereo", "temporal_rot", "temporal2048"):
+        c = cases[name]
         (src, dims), (dst, _) = c["src"], c["dst"]
         args = (src, dst, dims, c["pos"], c["alive"], c["cam"])
         kw = dict(max_iterations=20, conv_thresh_sq=1e-4,
@@ -215,28 +257,34 @@ def kernel_phase(frames, rolled, dev):
         n = c["pos"].shape[0]
         agree, err, err_th = compare(name, out, ref, n)
         ms = cuda_median_ms(lambda: kk.klt_bidir(*args, **kw))
+        dev_ms = cuda_median_ms(lambda: kk.klt_bidir(*args, **kw), spin=True)
         plain_ms = cuda_median_ms(lambda: kk.klt_bidir_reference(*args, **kw))
         bms, by, nbytes = bound_ms(args[3:] + out, work, c["rot"])
+        chain = chain_fields(dev_ms, work)
         print(f"kernel[{name}] C={src.shape[0]} N={n}: ok kernel="
               f"{int(out[2].sum())} plain={int(ref[2].sum())} agree="
               f"{agree:.4f} max|dpos|={err:.3g}px max|dth|={err_th:.3g} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
-              f"{bms:.5f} ({by}; {work['templates']} templates, "
-              f"{work['iterations']} GN steps, {nbytes} B)", flush=True)
+              f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
+              f"{plain_ms:.4f} bound_ms={bms:.5f} ({by}; "
+              f"{work['templates']} templates, "
+              f"{work['iterations']} GN steps, {nbytes} B) max_chain="
+              f"{chain['max_chain']} ns_per_link={chain['ns_per_link']:.1f}",
+              flush=True)
         if c["rot"]:
             th_mean = float(out[1][out[2]].mean())
             print(f"kernel[{name}] mean theta of ok tracks {th_mean:.4f} rad "
                   f"(second frame rolled by {ROLL} rad)", flush=True)
             check(th_mean < -0.5 * ROLL, "the roll was not recovered")
-        results[name] = dict(err=max(err, err_th), ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by)
+        results[name] = dict(err=max(err, err_th), ms=ms, device_ms=dev_ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             **chain)
 
     # K2: one level, both variants, 512 features started 2.5 px (level 0
     # scale) off along the true motion.
     for lvl in (0, 3):
         s = 0.5 ** lvl
         src = torch.stack([pyrs[0][lvl], pyrs[1][lvl]]).contiguous()
-        pos_src = (pos512 * s).contiguous()
+        pos_src = (cases["temporal"]["pos"] * s).contiguous()
         start = (pos_src + torch.tensor([-2.5 * s, 0.0], device=dev)) \
             .contiguous()
         for rot in (False, True):
@@ -244,7 +292,8 @@ def kernel_phase(frames, rolled, dev):
             dst = torch.stack([dst_pyrs[0][lvl], dst_pyrs[1][lvl]]) \
                 .contiguous()
             theta0 = torch.zeros(512, device=dev)
-            args = (src, dst, pos_src, start, theta0, alive512, cam512)
+            args = (src, dst, pos_src, start, theta0,
+                    cases["temporal"]["alive"], cases["temporal"]["cam"])
             kw = dict(max_iterations=20, conv_thresh_sq=1e-4,
                       with_rotation=rot)
             out = kk.klt_level(*args, **kw)
@@ -254,17 +303,24 @@ def kernel_phase(frames, rolled, dev):
             name = f"level{lvl}{'_rot' if rot else ''}"
             agree, err, err_th = compare(name, out, ref, 512)
             ms = cuda_median_ms(lambda: kk.klt_level(*args, **kw))
+            dev_ms = cuda_median_ms(lambda: kk.klt_level(*args, **kw),
+                                    spin=True)
             plain_ms = cuda_median_ms(
                 lambda: kk.klt_level_reference(*args, **kw))
             bms, by, nbytes = bound_ms(args[2:] + out, work, rot)
+            chain = chain_fields(dev_ms, work)
             print(f"kernel[{name}] C=2 N=512 {tuple(src.shape[1:])}: ok "
                   f"kernel={int(out[2].sum())} plain={int(ref[2].sum())} "
                   f"agree={agree:.4f} max|dpos|={err:.3g}px max|dth|="
-                  f"{err_th:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"{err_th:.3g} kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} "
                   f"bound_ms={bms:.5f} ({by}; {work['templates']} templates, "
-                  f"{work['iterations']} GN steps, {nbytes} B)", flush=True)
+                  f"{work['iterations']} GN steps, {nbytes} B) max_chain="
+                  f"{chain['max_chain']} ns_per_link="
+                  f"{chain['ns_per_link']:.1f}", flush=True)
             results[name] = dict(err=max(err, err_th), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                                 device_ms=dev_ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by, **chain)
     return results
 
 
@@ -534,7 +590,9 @@ def kernel_entry(name, launches, rows, extra=None):
          "replaces": REPLACES[name], "launches": launches,
          "max_abs_err": max(r["err"] for r in rows), "ms": r0["ms"],
          "plain_ms": r0["plain_ms"], "bound_ms": r0["bound_ms"],
-         "bound_by": r0["bound_by"], "library_ms": None}
+         "bound_by": r0["bound_by"], "library_ms": None,
+         "device_ms": r0["device_ms"], "max_chain": r0["max_chain"],
+         "ns_per_link": r0["ns_per_link"]}
     e.update(extra or {})
     return e
 
@@ -588,10 +646,11 @@ def main():
 
     print(json.dumps({"kernels": [
         kernel_entry("klt_bidir", launches,
-                     [kres["temporal"], kres["stereo"]],
-                     {"ms_stereo": kres["stereo"]["ms"],
-                      "plain_ms_stereo": kres["stereo"]["plain_ms"],
-                      "bound_ms_stereo": kres["stereo"]["bound_ms"],
+                     [kres["temporal"], kres["stereo"], kres["temporal2048"]],
+                     {**{f"{k}_{shape}": kres[shape][k]
+                         for shape in ("stereo", "temporal2048")
+                         for k in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms", "max_chain", "ns_per_link")},
                       "launches_mono": mono_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
@@ -599,7 +658,8 @@ def main():
                       kres["level3_rot"]],
                      {f"{k}_{lvl}": kres[lvl][k]
                       for lvl in ("level3", "level0_rot", "level3_rot")
-                      for k in ("ms", "plain_ms", "bound_ms")}),
+                      for k in ("ms", "device_ms", "plain_ms",
+                                "bound_ms")}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -143,13 +143,17 @@ def klt_bidir(src, dst, dims, pos, alive, cam, *, max_iterations: int = 20,
 
     Replaces ``track_bidirectional_pyramid`` (rsvio_tpu/ops/pallas/
     klt_kernel.py:737, kernel body ``_klt_bidir_kernel`` :652), translation
-    or (``with_rotation``) SE2. On the H100 the kernel is bound by
-    per-feature latency — a chain of dependent window loads and block
-    reductions, up to 2 x levels x (1 + max_iterations) long — not by
-    bandwidth: at 512 features the images sit in L2. The design gives each
-    feature a whole 256-thread block (one thread per pattern point) so each
-    link of the chain is short, and lets each feature leave its loop as soon
-    as it converges or fails.
+    or (``with_rotation``) SE2. On the H100 the kernel is bound by the
+    latency of each feature's dependent chain — a template and its
+    Gauss-Newton steps per level and direction, up to
+    2 x levels x (1 + max_iterations) links (``work["chain"]`` of the plain
+    version counts them) — not by bytes or operations. The design shortens
+    each link: one warp per feature (8 pattern points a lane, sums by warp
+    shuffles, no block barrier), a 32x32 tile of the target level staged in
+    shared memory once per level so Gauss-Newton steps read no global
+    memory (re-staged only when the iterate leaves it), and the template
+    window and first tile copied in one round trip. Each feature leaves its
+    loops as soon as it converges or fails.
 
     Args:
       src, dst: (C, T) float32 packed pyramids (``pack_pyramids``).
@@ -221,8 +225,10 @@ def klt_level(src, dst, pos_src, pos_dst0, theta0, alive, cam, *,
 
     Replaces ``track_level`` (rsvio_tpu/ops/pallas/klt_kernel.py:555, kernel
     body ``_klt_level_kernel`` :509; ``track_level_translation`` :638 is
-    this with ``with_rotation=False``). Same kernel family, design and bound
-    as ``klt_bidir``: one 256-thread block per feature, latency-bound.
+    this with ``with_rotation=False``). Same kernel family and bound as
+    ``klt_bidir``, on the earlier design: one 256-thread block per feature,
+    the window reloaded from global memory at every step, block sums with
+    barriers; latency-bound.
 
     Args:
       src, dst: (C, H, W) float32 level images (C cameras, packed).
@@ -377,10 +383,12 @@ def _level_pass_reference(src, dst, off, h, w, cam, pos_t, pos_i, theta,
     (final positions (N, 2), final angles (N,), ok (N,)); ok includes
     alive. ``work``, when given, is a dict whose "templates" and
     "iterations" counts grow by the templates built and the Gauss-Newton
-    steps taken (per feature), and whose "touched" masks (``_touch``) gain
-    the pixels those read: the 19x19 template support and each step's
-    17x17 support (rotation: its taps) — the work and the image bytes the
-    kernel needs on these inputs."""
+    steps taken (per feature), whose "chain" — an (N,) int64 tensor,
+    created at the first call — grows per feature by the same two counts
+    (the links of the dependent chain a kernel walks for that feature), and
+    whose "touched" masks (``_touch``) gain the pixels those read: the 19x19
+    template support and each step's 17x17 support (rotation: its taps) —
+    the work and the image bytes the kernel needs on these inputs."""
     npts = float(PATCH * PATCH)
     edge, center, b = win_geom(rot)
     win = _windows(src, off, h, w, cam, pos_t, edge, center)
@@ -448,11 +456,15 @@ def _level_pass_reference(src, dst, off, h, w, cam, pos_t, pos_i, theta,
     active = alive & patch_ok
     if work is not None:
         work["templates"] += int(alive.sum())
+        work.setdefault("chain", torch.zeros(
+            alive.shape[0], dtype=torch.int64, device=alive.device))
+        work["chain"] += alive
     for _ in range(max_iterations):
         if not bool(active.any()):
             break       # every feature frozen: further iterations change nothing
         if work is not None:
             work["iterations"] += int(active.sum())
+            work["chain"] += active
         in_img = _in_margin(p, h, w)
         fxs, fys = _frac3(p[:, 0]), _frac3(p[:, 1])
         if rot:
@@ -502,7 +514,7 @@ def _level_pass_reference(src, dst, off, h, w, cam, pos_t, pos_i, theta,
 
 def coarse_to_fine(n_levels: int, level_fn, state, ok, tolerant: bool):
     """The pyramid policy of every coarse-to-fine loop in the port's Python
-    code (the kernel's ``run_direction`` is its CUDA twin). For each level
+    code (the fused kernel's stage loop is its CUDA twin). For each level
     from the coarsest to 0, ``level_fn(lvl, *state)`` returns
     ``(*new_state, lvl_ok)``; a level's result replaces the state only where
     that level is ok, and `ok` accumulates every level's ok — under the

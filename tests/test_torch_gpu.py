@@ -9,7 +9,11 @@ that has only PyTorch and the CUDA toolkit:
 kernel (``klt_bidir`` in both variants, ``klt_level`` in both variants) is
 compared with its plain PyTorch version on the same CUDA tensors: ``ok``
 equal, positions within 1e-3 px and angles within 1e-4 rad, as in
-tests/test_torch_klt.py.
+tests/test_torch_klt.py. The ``_points`` batches put features in the
+border band, outside the image, far away and at NaN / inf, so the fused
+kernel's tiles are staged there too (clamped, as the plain version's
+windows); further cases cover ragged batches, interleaved cameras and a
+tile re-stage.
 """
 
 import numpy as np
@@ -112,6 +116,62 @@ def test_rotation_kernel_matches_plain_version(dev, tolerant, mode, lam):
     _agree(out, ref)
     assert int(out[2].sum()) >= 20
     assert float(out[1][out[2]].mean()) < -0.03, "the roll is recovered"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("n", [1, 37])
+def test_kernel_ragged_batch_two_cameras(dev, rot, n):
+    """K1 / K1-rot with N = 1 and N = 37 (not a multiple of the features
+    per block) on two cameras whose features interleave (cam 0, 1, 0, ...),
+    each tracking in its own images."""
+    roll = 0.05 if rot else 0.0
+    (a0, dims), (a1, _) = _packed(dev, [0.0, 0.012], seed=3, roll=roll)
+    (b0, _), (b1, _) = _packed(dev, [0.0, -0.02], seed=4, roll=roll)
+    src = torch.cat([a0, b0]).contiguous()
+    dst = torch.cat([a1, b1]).contiguous()
+    pos, alive, _ = _points(dev, n=37, seed=5)
+    pos, alive = pos[-n:].contiguous(), alive[-n:].contiguous()
+    cam = (torch.arange(n, device=dev) % 2).to(torch.int32)
+    kw = dict(max_iterations=10, coarse_tolerant=True, with_rotation=rot)
+    out = kk.klt_bidir(src, dst, dims, pos, alive, cam, **kw)
+    torch.cuda.synchronize()
+    ref = kk.klt_bidir_reference(src, dst, dims, pos, alive, cam, **kw)
+    _agree(out, ref)
+    assert int(out[2].sum()) >= (1 if n == 1 else 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+def test_kernel_restages_its_tile(dev, rot):
+    """One level and a shift of (-8, -1.6) px: Gauss-Newton travels beyond
+    the slack of the tile staged at the start position, so the kernel
+    re-stages it around the iterate and must still match the plain
+    version."""
+    (src, dims), (dst, _) = _packed(dev, [0.0, 0.2], levels=1)
+    pos, alive, cam = _points(dev)
+    kw = dict(with_rotation=rot)
+    out = kk.klt_bidir(src, dst, dims, pos, alive, cam, **kw)
+    torch.cuda.synchronize()
+    work = {"templates": 0, "iterations": 0}
+    ref = kk.klt_bidir_reference(src, dst, dims, pos, alive, cam, work=work,
+                                 **kw)
+    # A feature that fails only on the way back keeps its forward result,
+    # which differs from the plain version's by rounding.
+    _agree(out, ref, failed_keep_source=False)
+    fail = ~out[2] & torch.isfinite(ref[0]).all(dim=1)
+    assert float((out[0][fail] - ref[0][fail]).abs().max()) <= POS_TOL
+    # The tile is staged at floor(p) - 15 and holds a step's support while
+    # floor(iterate) - floor(p) lies in [-7, 8] on both axes (rotation: a
+    # narrower range); a step from outside that range re-stages it. An ok
+    # track with a chain of <= 21 links took <= 19 forward steps, so it
+    # converged and its last step moved it < 0.01 px: if its result lies
+    # beyond the range by more, that step started outside it.
+    conv = ref[2] & (work["chain"] <= 21)
+    low = torch.floor(ref[0] + 0.01) - torch.floor(pos) <= -8
+    high = torch.floor(ref[0] - 0.01) - torch.floor(pos) >= 9
+    restaged = conv & (low | high).any(dim=1)
+    assert int(restaged.sum()) >= 10, "too few tracks left the first tile"
 
 
 @pytest.mark.gpu

@@ -23,6 +23,8 @@ The CUDA kernels themselves are compared with the plain versions by the
 are skipped here.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -268,6 +270,72 @@ def test_plain_version_counts_the_pixels_it_reads(rot):
     touched = {k: int(m.sum()) for k, m in work["touched"].items()}
     assert touched == {img.data_ptr(): 19 * 19 + 11 * 11,
                        dst.data_ptr(): 17 * 17}
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_run(rot, tolerant):
+    """klt_bidir_reference with work counters, and its forward direction
+    alone composed from klt_level_reference as klt_bidir_reference composes
+    it: (work, forward work, forward ok, alive)."""
+    img0, img1 = _views(1, [0.0, 0.017], roll=ROLL if rot else 0.0)
+    pts, alive = _points(2, 48)
+    p0, p1 = _torch_pyr(img0), _torch_pyr(img1)
+    src, dims = kk.pack_pyramids([p0])
+    dst, _ = kk.pack_pyramids([p1])
+    pos, al = torch.from_numpy(pts), torch.from_numpy(alive)
+    cam = torch.zeros(len(pts), dtype=torch.int32)
+    kw = dict(max_iterations=10, with_rotation=rot)
+    work = {"templates": 0, "iterations": 0}
+    pos_fwd, _, _ = kk.klt_bidir_reference(src, dst, dims, pos, al, cam,
+                                           coarse_tolerant=tolerant,
+                                           work=work, **kw)
+    fwd = {"templates": 0, "iterations": 0}
+
+    def level(lvl, cur, th):
+        s = 0.5 ** lvl
+        p, t, ok = kk.klt_level_reference(p0[lvl][None], p1[lvl][None],
+                                          pos * s, cur * s, th, al, cam,
+                                          work=fwd, **kw)
+        return p / s, t, ok
+
+    (cur, _), ok_fwd = kk.coarse_to_fine(
+        LEVELS, level, (pos, torch.zeros(len(pts))), al, tolerant)
+    # The composition is the kernel's forward direction.
+    assert torch.equal(pos_fwd[ok_fwd], cur[ok_fwd])
+    return work, fwd, ok_fwd, al
+
+
+CHAIN_CASES = [(False, True), (False, False), (True, True), (True, False)]
+
+
+@pytest.mark.parametrize("rot,tolerant", CHAIN_CASES)
+def test_chain_counts_templates_and_steps(rot, tolerant):
+    """work["chain"]: per feature, its templates plus Gauss-Newton steps
+    over both directions and all levels."""
+    work, _, _, _ = _chain_run(rot, tolerant)
+    chain = work["chain"]
+    assert chain.dtype == torch.int64 and chain.shape == (48,)
+    assert int(chain.sum()) == work["templates"] + work["iterations"]
+    assert int(chain.max()) <= 2 * LEVELS * (1 + 10)
+
+
+@pytest.mark.parametrize("rot,tolerant", CHAIN_CASES)
+def test_chain_is_zero_for_dead_features(rot, tolerant):
+    work, _, _, alive = _chain_run(rot, tolerant)
+    assert not work["chain"][~alive].any()
+    assert bool((work["chain"][alive] >= LEVELS).all())
+
+
+@pytest.mark.parametrize("rot,tolerant", CHAIN_CASES)
+def test_chain_has_no_backward_links_after_a_forward_failure(rot, tolerant):
+    """A feature that fails forward walks only its forward links; one that
+    passes adds at least one backward template per level."""
+    work, fwd, ok_fwd, alive = _chain_run(rot, tolerant)
+    failed = alive & ~ok_fwd
+    assert int(failed.sum()) >= 3     # the outside-image features at least
+    assert torch.equal(work["chain"][failed], fwd["chain"][failed])
+    assert bool((work["chain"][ok_fwd]
+                 >= fwd["chain"][ok_fwd] + LEVELS).all())
 
 
 @pytest.fixture
