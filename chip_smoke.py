@@ -21,7 +21,9 @@ them. Phases, each of which raises on failure:
                at pyramid levels 0 and 3, 512 features, translation and
                rotation. Each line gives the longest per-feature chain of
                dependent links (templates + Gauss-Newton steps, counted by
-               the plain version) and the kernel's device time per link.
+               the plain version) and the kernel's device time per link;
+               K2's lines also the device time of the same launch with
+               every feature dead (dead_ms: the kernel's fixed cost).
   3. agree   — runs the port's estimator step on a small scene on the CPU
                (plain KLT) and on the GPU (kernels) and requires the poses
                to agree within 1e-3.
@@ -307,20 +309,26 @@ def kernel_phase(frames, rolled, dev):
                                     spin=True)
             plain_ms = cuda_median_ms(
                 lambda: kk.klt_level_reference(*args, **kw))
+            # The same launch with every feature dead: no level stage, only
+            # the per-feature reads and writes — the kernel's fixed cost.
+            dead = args[:5] + (torch.zeros_like(args[5]), args[6])
+            dead_ms = cuda_median_ms(lambda: kk.klt_level(*dead, **kw),
+                                     spin=True)
             bms, by, nbytes = bound_ms(args[2:] + out, work, rot)
             chain = chain_fields(dev_ms, work)
             print(f"kernel[{name}] C=2 N=512 {tuple(src.shape[1:])}: ok "
                   f"kernel={int(out[2].sum())} plain={int(ref[2].sum())} "
                   f"agree={agree:.4f} max|dpos|={err:.3g}px max|dth|="
                   f"{err_th:.3g} kernel_ms={ms:.4f} device_ms={dev_ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} "
+                  f"dead_ms={dead_ms:.4f} plain_ms={plain_ms:.4f} "
                   f"bound_ms={bms:.5f} ({by}; {work['templates']} templates, "
                   f"{work['iterations']} GN steps, {nbytes} B) max_chain="
                   f"{chain['max_chain']} ns_per_link="
                   f"{chain['ns_per_link']:.1f}", flush=True)
             results[name] = dict(err=max(err, err_th), ms=ms,
-                                 device_ms=dev_ms, plain_ms=plain_ms,
-                                 bound_ms=bms, bound_by=by, **chain)
+                                 device_ms=dev_ms, dead_ms=dead_ms,
+                                 plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by, **chain)
     return results
 
 
@@ -656,10 +664,11 @@ def main():
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],
                       kres["level3_rot"]],
-                     {f"{k}_{lvl}": kres[lvl][k]
-                      for lvl in ("level3", "level0_rot", "level3_rot")
-                      for k in ("ms", "device_ms", "plain_ms",
-                                "bound_ms")}),
+                     {"dead_ms": kres["level0"]["dead_ms"],
+                      **{f"{k}_{lvl}": kres[lvl][k]
+                         for lvl in ("level3", "level0_rot", "level3_rot")
+                         for k in ("ms", "device_ms", "dead_ms", "plain_ms",
+                                   "bound_ms", "max_chain", "ns_per_link")}}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,24 +24,28 @@
 // (texture filtering's fixed-point weights would break parity with the
 // plain version).
 //
-// What bounds the fused pass on the H100: neither bytes nor operations (a
-// call reads a few MB, mostly from L2, and its arithmetic is ~50x below its
-// time) but the dependent chain of each feature: 2 directions x levels x
-// (1 template + up to max_iterations Gauss-Newton steps). The call lasts as
-// long as its longest chain, so what the design shortens is each link.
+// What bounds both on the H100: neither bytes nor operations (a call reads
+// a few MB, mostly from L2, and its arithmetic is ~50x below its time) but
+// the dependent chain of each feature: 1 template + up to max_iterations
+// Gauss-Newton steps per level stage, over 2 directions x levels stages in
+// the fused pass and one stage in the one-level pass. A call lasts as long
+// as its longest chain, so what the design shortens is each link.
 //
-// K1 design: one warp per feature, kWarpsPerBlock features per block. What
-// made a link long in the earlier block-per-feature design, and what this
-// one does about it:
+// Design: one warp per feature, kWarpsPerBlock features per block, and one
+// level stage (level_stage: copy the template window and the target tile,
+// build the template, run Gauss-Newton) that both kernels call. What made a
+// link long in the earlier one-block-per-feature design, and what this one
+// does about it:
 //   1. The window went back to global memory at every Gauss-Newton step
-//      (one dependent L2 round trip per link). Now per level and direction
-//      the warp stages one 32x32 tile of the target level in its shared
-//      memory, and each step reads its taps from the tile. A step whose
-//      support (17x17; for rotation the box of the rotated taps at the
-//      current angle, at most 27x27 inside the theta gate) leaves the tile
-//      re-stages it around the current position, so results are exact for
-//      any travel. A rotated tap outside the tile (only for an angle whose
-//      box is wider than the tile) is read from the image.
+//      (one dependent L2 round trip per link). Now per stage (one level of
+//      one direction) the warp stages a 32x32 tile of the target level in
+//      its shared memory, and each step reads its taps from the tile. A
+//      step whose support (17x17; for rotation the box of the rotated taps
+//      at the current angle, at most 27x27 inside the theta gate) leaves
+//      the tile re-stages it around the current position, so results are
+//      exact for any travel. A rotated tap outside the tile (only for an
+//      angle whose box is wider than the tile, or a non-finite angle, which
+//      the one-level pass may be given) is read from the image.
 //   2. Block-wide sums cost two __syncthreads and a pass through shared
 //      memory each. Now lane l owns 8 pattern points (row l/2, columns
 //      8(l&1)..+7) and keeps their template values and H^-1 J rows in
@@ -58,7 +62,7 @@
 //      translation 3-8 % faster at N <= 2048 but moved a position by
 //      1.2e-3 px at N=8192, past the 1e-3 px parity bound, so it was dropped.
 //   4. The template window and the first target window loaded one after the
-//      other. Now per level the warp issues the template window (19x19 of
+//      other. Now per stage the warp issues the template window (19x19 of
 //      the template image) and the tile together, as 4-byte cp.async copies
 //      from clamped addresses, and waits once. Copying the next level's
 //      window and tile into a second set of buffers during Gauss-Newton was
@@ -72,12 +76,7 @@
 // clamped image pixel the window of the plain version holds, so kernel and
 // plain version sample the same values; they differ in the order of their
 // sums and, by an ulp, where the kernel multiplies by a reciprocal.
-// (Timings: klt_ab.py on an H100; the numbers are in PERF.md.)
-//
-// K2 keeps the earlier block-per-feature body (level_pass_block): one
-// 256-thread block per feature, one thread per pattern point, the window
-// reloaded from global memory at every step, block sums through shared
-// memory with barriers.
+// (Timings: chip_smoke.py on an H100; the numbers are in PERF.md.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,8 +84,6 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kPatch = 16;
-constexpr int kMaxSums = 6;
 constexpr float kMargin = 2.0f;
 constexpr float kMinMean = 1e-3f;
 constexpr float kMinGradEnergy = 1e-4f;
@@ -95,9 +92,9 @@ constexpr float kDetEps = 1e-12f;
 constexpr float kNpts = 256.0f;
 constexpr float kMaxThetaSq = 0.12f;   // theta step gate (TPU: _MAX_THETA_SQ)
 
-// K1: warp per feature. Features per block: of 2, 4 and 8, 2 is the fastest
-// on the main path's two passes, and 1 is within 1 % (PERF.md). 16
-// resident warps per SM bound the registers at 128, without spills.
+// Warp per feature. Features per block: of 2, 4 and 8, 2 is the fastest on
+// the main path's two passes, and 1 is within 1 % (PERF.md). 16 resident
+// warps per SM bound the registers at 128, without spills.
 constexpr int kWarpsPerBlock = 2;
 constexpr int kWarpsPerSm = 16;
 constexpr int kWarpThreads = 32 * kWarpsPerBlock;
@@ -111,21 +108,7 @@ constexpr int kTileFloats = kTile * kTileS;
 constexpr int kTmplFloats = kTmplE * kTmplS;
 constexpr int kWarpFloats = kTileFloats + kTmplFloats;
 static_assert(kWarpsPerBlock * kWarpFloats * 4 <= 48 * 1024,
-              "static shared memory of a K1 block");
-
-// K2: block per feature.
-constexpr int kThreads = kPatch * kPatch;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWinMax = 25;
-
-// Window geometry of K2 per variant: edge, index of floor(position),
-// pattern base.
-template <bool kRot>
-struct Geom {
-  static constexpr int E = kRot ? 25 : 20;
-  static constexpr int C = kRot ? 12 : 9;
-  static constexpr int B = kRot ? 4 : 1;
-};
+              "static shared memory of a block");
 
 struct Levels {
   int n;
@@ -164,11 +147,6 @@ __device__ __forceinline__ int clamp_floor(float p) {
   return (int)fminf(fmaxf(floorf(p), -1e6f), 1e6f);
 }
 
-// Image coordinate of window index 0 along one axis: floor(p) - center.
-__device__ __forceinline__ int window_base(float p, int center) {
-  return clamp_floor(p) - center;
-}
-
 __device__ __forceinline__ float clamped_pixel(const float* img, int h, int w,
                                                int y, int x) {
   y = min(max(y, 0), h - 1);
@@ -183,7 +161,7 @@ __device__ __forceinline__ float hat(float d, float k) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 / K1-rot: one warp per feature
+// The level stage of one feature, run by one warp
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async4(float* dst_smem,
@@ -245,11 +223,13 @@ __device__ __forceinline__ float sum8(const float* x) {
 
 // Half-width of the pixel box around floor(p) that a Gauss-Newton step at
 // angle (cth, sth) reads: 8 for translation; the rotated taps reach
-// 8 (|cos - 1| + |sin|) + 1 further (plus 1 for rounding).
+// 8 (|cos - 1| + |sin|) + 1 further (plus 1 for rounding). A non-finite
+// angle (NaN cos and sin) gets 74, wider than any tile, so its taps are read
+// with bounds checks (fminf returns the operand that is not NaN).
 template <bool kRot>
 __device__ __forceinline__ int support(float cth, float sth) {
   if constexpr (kRot)
-    return 10 + (int)(8.0f * (fabsf(cth - 1.0f) + fabsf(sth)));
+    return 10 + (int)fminf(8.0f * (fabsf(cth - 1.0f) + fabsf(sth)), 64.0f);
   return 8;
 }
 
@@ -534,17 +514,47 @@ __device__ __forceinline__ bool gauss_newton(const Template<kRot>& T,
   return okf && in_margin(px, py, h, w);
 }
 
-// The fused pass, one warp per feature: forward over the levels from the
-// coarsest (templates at the source position in `src`, Gauss-Newton in
-// `dst`, started at the source position and angle 0), then, if the forward
-// track is ok, backward (templates at the forward result in `dst`,
-// Gauss-Newton in `src`, started at the source position and the negated
-// forward angle), and the return gate. The 2 x levels stages run in one
-// loop, so the level body is compiled once (two inlined copies, one per
-// direction, made the rotation variant ~30 % slower). Per stage the
-// template window and the tile around the stage's start are copied
-// together, with one wait. Launch bounds: kWarpsPerSm warps resident per
-// SM, so at most 65536 / (32 kWarpsPerSm) registers a thread.
+// One level stage of one feature, run by its warp: the template at (tx, ty)
+// in `a_img`, then Gauss-Newton from (px, py) and angle th in `b_img` (one
+// h x w level image each, level coordinates). The template window and the
+// tile around the start are copied together, with one wait. Returns the
+// level's ok; (px, py, th) hold the final iterate, even when the level
+// fails.
+template <bool kRot>
+__device__ __forceinline__ bool level_stage(float* win, float* tile,
+                                            const float* a_img,
+                                            const float* b_img, int h, int w,
+                                            float tx, float ty, float& px,
+                                            float& py, float& th,
+                                            const Params& P, int lane) {
+  int ox = clamp_floor(px) - kTileC;
+  int oy = clamp_floor(py) - kTileC;
+  __syncwarp();   // every lane is done with the previous stage's buffers
+  stage_window(win, a_img, h, w, tx, ty, lane);
+  stage_tile(tile, b_img, h, w, ox, oy, lane);
+  cp_async_wait_all();
+  __syncwarp();
+  Template<kRot> T;
+  build_template<kRot>(win, h, w, tx, ty, P, lane, T);
+  return gauss_newton<kRot>(T, tile, ox, oy, b_img, h, w, px, py, th, P,
+                            lane);
+}
+
+// ---------------------------------------------------------------------------
+// The kernels: one warp per feature, kWarpsPerBlock features per block.
+// Launch bounds: kWarpsPerSm warps resident per SM, so at most
+// 65536 / (32 kWarpsPerSm) registers a thread. A warp whose feature index
+// is past n returns whole; no block barrier follows.
+// ---------------------------------------------------------------------------
+
+// The fused pass: forward over the levels from the coarsest (templates at
+// the source position in `src`, Gauss-Newton in `dst`, started at the
+// source position and angle 0), then, if the forward track is ok, backward
+// (templates at the forward result in `dst`, Gauss-Newton in `src`, started
+// at the source position and the negated forward angle), and the return
+// gate. The 2 x levels stages run in one loop, so the stage is compiled
+// once (two inlined copies, one per direction, made the rotation variant
+// ~30 % slower). A failed level keeps the previous estimate.
 template <bool kRot>
 __global__ void __launch_bounds__(kWarpThreads, kWarpsPerSm / kWarpsPerBlock)
 klt_bidir_kernel(const float* __restrict__ src, const float* __restrict__ dst,
@@ -557,7 +567,7 @@ klt_bidir_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int f = blockIdx.x * kWarpsPerBlock + wib;
-  if (f >= n) return;   // the whole warp; no block barrier follows
+  if (f >= n) return;
   float* win = smem + wib * kWarpFloats;
   float* tile = win + kTmplFloats;
   const float sx = pos[2 * f];
@@ -577,23 +587,11 @@ klt_bidir_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   float th_fwd = 0.0f;
   for (int k = 0; live && k < 2 * L; ++k) {
     const int lvl = k < L ? L - 1 - k : 2 * L - 1 - k;
-    const int h = lv.h[lvl], w = lv.w[lvl];
     const float s = lv.s[lvl];
-    const float ltx = tx * s, lty = ty * s;
     float px = cx * s, py = cy * s, pth = th;
-    const float* a_lvl = a_img + lv.off[lvl];
-    const float* b_lvl = b_img + lv.off[lvl];
-    int ox = clamp_floor(px) - kTileC;
-    int oy = clamp_floor(py) - kTileC;
-    __syncwarp();   // every lane is done with the previous stage's buffers
-    stage_window(win, a_lvl, h, w, ltx, lty, lane);
-    stage_tile(tile, b_lvl, h, w, ox, oy, lane);
-    cp_async_wait_all();
-    __syncwarp();
-    Template<kRot> T;
-    build_template<kRot>(win, h, w, ltx, lty, P, lane, T);
-    const bool lok = gauss_newton<kRot>(T, tile, ox, oy, b_lvl, h, w, px, py,
-                                        pth, P, lane);
+    const bool lok = level_stage<kRot>(
+        win, tile, a_img + lv.off[lvl], b_img + lv.off[lvl], lv.h[lvl],
+        lv.w[lvl], tx * s, ty * s, px, py, pth, P, lane);
     if (lok) {
       cx = px * lv.inv_s[lvl];
       cy = py * lv.inv_s[lvl];
@@ -623,244 +621,13 @@ klt_bidir_kernel(const float* __restrict__ src, const float* __restrict__ dst,
   }
 }
 
-// ---------------------------------------------------------------------------
-// K2: one 256-thread block per feature
-// ---------------------------------------------------------------------------
-
-// Loads the E x E window whose index (C, C) is floor(p), clamping each
-// pixel coordinate into the image.
-template <int E, int C>
-__device__ void load_window(float* win, const float* img, int h, int w,
-                            float px, float py, int tid) {
-  const int bx = window_base(px, C);
-  const int by = window_base(py, C);
-  for (int k = tid; k < E * E; k += kThreads) {
-    const int j = k / E;
-    win[k] = clamped_pixel(img, h, w, by + j, bx + (k - j * E));
-  }
-}
-
-// Block-wide sums of K values. Every thread returns the same totals.
-template <int K>
-__device__ __forceinline__ void block_sum(float* v, float* red, int tid) {
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    if (lane == 0) red[k * kWarps + warp] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) s += red[k * kWarps + i];
-    v[k] = s;
-  }
-  __syncthreads();
-}
-
-// Bilinear sample of pattern point (r, c) displaced by (dx, dy) window
-// pixels from its unrotated tap: the TPU kernel's _rot_sample, whose hat
-// weights are nonzero only at floor(d) and floor(d) + 1. Taps inside the
-// window come from shared memory, others from the image (clamped).
-template <int E, int B, int C>
-__device__ float rot_sample(const float* win, const float* img, int h, int w,
-                            float px, float py, float dx, float dy, int r,
-                            int c) {
-  const float kx = fminf(fmaxf(floorf(dx), -64.0f), 64.0f);
-  const float ky = fminf(fmaxf(floorf(dy), -64.0f), 64.0f);
-  const float wx0 = hat(dx, kx), wx1 = hat(dx, kx + 1.0f);
-  const float wy0 = hat(dy, ky), wy1 = hat(dy, ky + 1.0f);
-  const int i0 = B + c + (int)kx;
-  const int j0 = B + r + (int)ky;
-  float v[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int j = j0 + (t >> 1);
-    const int i = i0 + (t & 1);
-    if (j >= 0 && j < E && i >= 0 && i < E) {
-      v[t] = win[j * E + i];
-    } else {
-      v[t] = clamped_pixel(img, h, w, window_base(py, C) + j,
-                           window_base(px, C) + i);
-    }
-  }
-  const float row0 = wx0 * v[0] + wx1 * v[1];
-  const float row1 = wx0 * v[2] + wx1 * v[3];
-  return wy0 * row0 + wy1 * row1;
-}
-
-// One pyramid level of IC-KLT for the block's feature, one thread per
-// pattern point: template at (tx, ty) in `src`, Gauss-Newton from (px, py)
-// and angle th in `dst` (level coordinates). Every iteration loads the
-// window around the current position from the level image (translation: a
-// 20x20 window, center 9, pattern base 1; rotation: 25x25, center 12,
-// base 4). Returns the level's ok flag; (px, py, th) hold the final warp
-// (th is only changed by the rotation variant).
+// One level, one direction (TPU: _klt_level_kernel): one stage, template at
+// pos_src in `src`, Gauss-Newton from (pos_dst0, theta0) in `dst`. Returns
+// the final iterate even when the level fails; ok = level ok and alive. A
+// dead feature returns pos_dst0 and theta0 unchanged, and the translation
+// variant always returns theta0.
 template <bool kRot>
-__device__ __forceinline__ bool level_pass_block(const float* src, const float* dst, int h, int w,
-                           float tx, float ty, float& px, float& py,
-                           float& th, const Params& P, float* win, float* red,
-                           int tid) {
-  constexpr int E = Geom<kRot>::E;
-  constexpr int C = Geom<kRot>::C;
-  constexpr int B = Geom<kRot>::B;
-  constexpr int NS = kRot ? 4 : 3;    // template sums
-  constexpr int NH = kRot ? 6 : 3;    // Hessian entries
-  constexpr int ND = kRot ? 3 : 2;    // degrees of freedom
-  const int r = tid / kPatch;
-  const int c = tid - r * kPatch;
-  const float xc = (float)(c - 8);    // pattern offset from the tracked point
-  const float yc = (float)(r - 8);
-  const bool ssd = P.ssd != 0;
-#define WV(dy, dx) win[(B + r + (dy)) * E + (B + c + (dx))]
-
-  // ---- template (source image, unrotated) ----
-  __syncthreads();
-  load_window<E, C>(win, src, h, w, tx, ty, tid);
-  __syncthreads();
-  const bool src_ok = in_margin(tx, ty, h, w);
-  float fx = tx - floorf(tx);
-  float fy = ty - floorf(ty);
-  float val = lerp4(WV(0, 0), WV(0, 1), WV(1, 0), WV(1, 1), fx, fy);
-  float gx = lerp4(WV(0, 1) - WV(0, -1), WV(0, 2) - WV(0, 0),
-                   WV(1, 1) - WV(1, -1), WV(1, 2) - WV(1, 0), fx, fy) * 0.5f;
-  float gy = lerp4(WV(1, 0) - WV(-1, 0), WV(1, 1) - WV(-1, 1),
-                   WV(2, 0) - WV(0, 0), WV(2, 1) - WV(0, 1), fx, fy) * 0.5f;
-#undef WV
-  // Rotation Jacobian row: grad I . perp(u), perp(u) = (-u_y, u_x).
-  const float gt = kRot ? gy * xc - gx * yc : 0.0f;
-  float s[NS];
-  s[0] = val;
-  s[1] = gx;
-  s[2] = gy;
-  if constexpr (kRot) s[3] = gt;
-  block_sum<NS>(s, red, tid);
-  const float mean = s[0] / kNpts;
-  const float mean_s = fmaxf(mean, kMinMean);
-  float tmpl, jx, jy, jt = 0.0f;
-  if (ssd) {
-    tmpl = val;
-    jx = gx;
-    jy = gy;
-    jt = gt;
-  } else {
-    tmpl = val / mean_s;
-    jx = (gx - tmpl * (s[1] / kNpts)) / mean_s;
-    jy = (gy - tmpl * (s[2] / kNpts)) / mean_s;
-    if constexpr (kRot) jt = (gt - tmpl * (s[NS - 1] / kNpts)) / mean_s;
-  }
-  float hs[NH];
-  hs[0] = jx * jx;
-  hs[1] = jx * jy;
-  hs[2] = jy * jy;
-  if constexpr (kRot) {
-    hs[NH - 3] = jx * jt;
-    hs[NH - 2] = jy * jt;
-    hs[NH - 1] = jt * jt;
-  }
-  block_sum<NH>(hs, red, tid);
-  const float hxx = hs[0], hxy = hs[1], hyy = hs[2];
-  const float energy = hxx + hyy;
-  const float hxx_d = hxx + P.lm_lambda;
-  const float hyy_d = hyy + P.lm_lambda;
-  float det, hjx, hjy, hjt = 0.0f;
-  if constexpr (kRot) {
-    // Adjugate inverse of the damped symmetric 3x3 system.
-    const float hxt = hs[NH - 3], hyt = hs[NH - 2];
-    const float htt_d = hs[NH - 1] + P.lm_lambda;
-    const float c00 = hyy_d * htt_d - hyt * hyt;
-    const float c01 = hxt * hyt - hxy * htt_d;
-    const float c02 = hxy * hyt - hxt * hyy_d;
-    const float c11 = hxx_d * htt_d - hxt * hxt;
-    const float c12 = hxy * hxt - hxx_d * hyt;
-    const float c22 = hxx_d * hyy_d - hxy * hxy;
-    det = hxx_d * c00 + hxy * c01 + hxt * c02;
-    const float det_s = fabsf(det) > kDetEps ? det : 1.0f;
-    hjx = (c00 / det_s) * jx + (c01 / det_s) * jy + (c02 / det_s) * jt;
-    hjy = (c01 / det_s) * jx + (c11 / det_s) * jy + (c12 / det_s) * jt;
-    hjt = (c02 / det_s) * jx + (c12 / det_s) * jy + (c22 / det_s) * jt;
-  } else {
-    det = hxx_d * hyy_d - hxy * hxy;
-    const float det_s = fabsf(det) > kDetEps ? det : 1.0f;
-    const float a = hyy_d / det_s;
-    const float b = -hxy / det_s;
-    const float d = hxx_d / det_s;
-    hjx = a * jx + b * jy;
-    hjy = b * jx + d * jy;
-  }
-  const bool patch_ok = src_ok && (ssd || mean > kMinMean) &&
-                        energy > (ssd ? kMinGradEnergySsd : kMinGradEnergy) &&
-                        fabsf(det) > kDetEps;
-
-  // ---- Gauss-Newton (target image) ----
-  bool okf = patch_ok;
-  bool active = patch_ok;
-  for (int it = 0; it < P.max_iterations && active; ++it) {
-    load_window<E, C>(win, dst, h, w, px, py, tid);
-    __syncthreads();
-    const bool in_img = in_margin(px, py, h, w);
-    const float fxs = px - floorf(px);
-    const float fys = py - floorf(py);
-    float cth = 1.0f, sth = 0.0f, v;
-    if constexpr (kRot) {
-      cth = cosf(th);
-      sth = sinf(th);
-      const float dx = (cth - 1.0f) * xc - sth * yc + fxs;
-      const float dy = sth * xc + (cth - 1.0f) * yc + fys;
-      v = rot_sample<E, B, C>(win, dst, h, w, px, py, dx, dy, r, c);
-    } else {
-      const int k = (B + r) * E + (B + c);
-      v = lerp4(win[k], win[k + 1], win[k + E], win[k + E + 1], fxs, fys);
-    }
-    float res;
-    if (ssd) {
-      res = v - tmpl;
-    } else {
-      float sm[1] = {v};
-      block_sum<1>(sm, red, tid);
-      res = v / fmaxf(sm[0] / kNpts, kMinMean) - tmpl;
-    }
-    float inc[ND];
-    inc[0] = hjx * res;
-    inc[1] = hjy * res;
-    if constexpr (kRot) inc[ND - 1] = hjt * res;
-    block_sum<ND>(inc, red, tid);
-    const float inc_x = -inc[0];
-    const float inc_y = -inc[1];
-    float ix = inc_x, iy = inc_y, th_new = th;
-    float inc_sq = inc_x * inc_x + inc_y * inc_y;
-    bool th_ok = true;
-    if constexpr (kRot) {
-      const float inc_t = -inc[ND - 1];
-      th_new = th + inc_t;
-      // Compose W <- W o exp(inc): the translation increment is rotated
-      // into the current warp frame.
-      ix = cth * inc_x - sth * inc_y;
-      iy = sth * inc_x + cth * inc_y;
-      inc_sq = inc_sq + inc_t * inc_t;
-      th_ok = th_new * th_new < kMaxThetaSq;
-    }
-    const bool step_ok = in_img && isfinite(inc_sq) && inc_sq < 1e12f && th_ok;
-    if (step_ok) {
-      px = px + ix;
-      py = py + iy;
-      th = th_new;
-    }
-    okf = okf && step_ok;
-    active = step_ok && inc_sq >= P.conv_thresh_sq;
-  }
-  return okf && in_margin(px, py, h, w);
-}
-
-// One level, one direction (TPU: _klt_level_kernel). ok = level ok and
-// alive; a dead feature keeps its start position and angle.
-template <bool kRot>
-__global__ void __launch_bounds__(kThreads, kRot ? 3 : 4)
+__global__ void __launch_bounds__(kWarpThreads, kWarpsPerSm / kWarpsPerBlock)
 klt_level_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  long long cam_stride, int h, int w,
                  const float* __restrict__ pos_src,
@@ -869,22 +636,24 @@ klt_level_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  const uint8_t* __restrict__ alive,
                  const int* __restrict__ cam, float* __restrict__ out_pos,
                  float* __restrict__ out_theta, uint8_t* __restrict__ out_ok,
-                 Params P) {
-  __shared__ float win[kWinMax * kWinMax];
-  __shared__ float red[kMaxSums * kWarps];
-  const int f = blockIdx.x;
-  const int tid = threadIdx.x;
+                 int n, Params P) {
+  __shared__ float smem[kWarpsPerBlock * kWarpFloats];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int f = blockIdx.x * kWarpsPerBlock + wib;
+  if (f >= n) return;
+  float* win = smem + wib * kWarpFloats;
+  float* tile = win + kTmplFloats;
   float px = pos_dst0[2 * f];
   float py = pos_dst0[2 * f + 1];
   float th = theta0[f];
   bool ok = false;
   if (alive[f] != 0) {
-    ok = level_pass_block<kRot>(src + (long long)cam[f] * cam_stride,
-                                dst + (long long)cam[f] * cam_stride, h, w,
-                                pos_src[2 * f], pos_src[2 * f + 1], px, py,
-                                th, P, win, red, tid);
+    const long long c = (long long)cam[f] * cam_stride;
+    ok = level_stage<kRot>(win, tile, src + c, dst + c, h, w, pos_src[2 * f],
+                           pos_src[2 * f + 1], px, py, th, P, lane);
   }
-  if (tid == 0) {
+  if (lane == 0) {
     out_pos[2 * f] = px;
     out_pos[2 * f + 1] = py;
     out_theta[f] = th;
@@ -962,14 +731,15 @@ extern "C" int klt_level_launch(
                                lm_lambda, 0);
   if (n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
+    const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
     if (with_rotation) {
-      klt_level_kernel<true><<<n, kThreads, 0, st>>>(
+      klt_level_kernel<true><<<blocks, kWarpThreads, 0, st>>>(
           src, dst, cam_stride, h, w, pos_src, pos_dst0, theta0, alive, cam,
-          out_pos, out_theta, out_ok, P);
+          out_pos, out_theta, out_ok, n, P);
     } else {
-      klt_level_kernel<false><<<n, kThreads, 0, st>>>(
+      klt_level_kernel<false><<<blocks, kWarpThreads, 0, st>>>(
           src, dst, cam_stride, h, w, pos_src, pos_dst0, theta0, alive, cam,
-          out_pos, out_theta, out_ok, P);
+          out_pos, out_theta, out_ok, n, P);
     }
   }
   return (int)cudaGetLastError();

@@ -3,7 +3,7 @@ wrappers, and their plain PyTorch versions.
 
 Counterpart of rsvio_tpu/ops/pallas/klt_kernel.py. One CUDA source
 (``csrc/klt_bidir.cu``) holds both kernels, each in a translation (2-dof)
-and an SE2 rotation (3-dof) variant:
+and an SE2 rotation (3-dof) variant, on one warp-per-feature level stage:
 
 - ``klt_bidir`` replaces ``track_bidirectional_pyramid`` /
   ``_klt_bidir_kernel``: one launch tracks every feature forward over all
@@ -225,10 +225,13 @@ def klt_level(src, dst, pos_src, pos_dst0, theta0, alive, cam, *,
 
     Replaces ``track_level`` (rsvio_tpu/ops/pallas/klt_kernel.py:555, kernel
     body ``_klt_level_kernel`` :509; ``track_level_translation`` :638 is
-    this with ``with_rotation=False``). Same kernel family and bound as
-    ``klt_bidir``, on the earlier design: one 256-thread block per feature,
-    the window reloaded from global memory at every step, block sums with
-    barriers; latency-bound.
+    this with ``with_rotation=False``). Same bound and design as
+    ``klt_bidir``, whose level stage it runs once per feature: one warp per
+    feature, the template window and a 32x32 tile of ``dst`` around the
+    start copied to shared memory together, Gauss-Newton steps reading the
+    tile (re-staged when the iterate leaves it); latency-bound. With
+    rotation, a non-finite ``theta0`` takes no step (its samples are NaN)
+    and fails.
 
     Args:
       src, dst: (C, H, W) float32 level images (C cameras, packed).
@@ -237,7 +240,8 @@ def klt_level(src, dst, pos_src, pos_dst0, theta0, alive, cam, *,
       theta0: (N,) start angle (used by the rotation variant only).
       alive: (N,) bool; cam: (N,) int32 camera index per feature.
     Returns (pos (N, 2), theta (N,), ok (N,) bool); ok is the level's ok
-    and alive. A dead feature keeps pos_dst0 and theta0.
+    and alive. pos and theta are the last Gauss-Newton iterate, also where
+    the level fails; a dead feature keeps pos_dst0 and theta0.
     """
     _check_mode(residual_mode)
     n = pos_src.shape[0]

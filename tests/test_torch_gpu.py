@@ -12,8 +12,9 @@ equal, positions within 1e-3 px and angles within 1e-4 rad, as in
 tests/test_torch_klt.py. The ``_points`` batches put features in the
 border band, outside the image, far away and at NaN / inf, so the fused
 kernel's tiles are staged there too (clamped, as the plain version's
-windows); further cases cover ragged batches, interleaved cameras and a
-tile re-stage.
+windows); further cases cover, for both kernels, ragged batches,
+interleaved cameras and a tile re-stage, and for ``klt_level`` non-finite
+start angles.
 """
 
 import numpy as np
@@ -67,6 +68,11 @@ def _points(dev, n=64, seed=1):
     alive[8:11] = False
     return (torch.from_numpy(pts).to(dev), torch.from_numpy(alive).to(dev),
             torch.zeros(n, dtype=torch.int32, device=dev))
+
+
+def _same(a, b):
+    """Equal values, NaN where NaN."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 def _agree(a, b, failed_keep_source=True):
@@ -203,6 +209,134 @@ def test_level_kernel_matches_plain_version(dev, rot, lvl):
         assert torch.equal(out[0][dead], start[dead])
         assert torch.equal(out[1][dead], theta0[dead])
         assert int(out[2].sum()) >= 15
+
+
+def _level_stacks(dev, lvl, rot, levels=3, shifts=(0.012, -0.02)):
+    """Level `lvl` of two cameras' image pairs (seeds 3 and 4; camera k's
+    second image at x offset shifts[k], rolled by 0.05 rad with rotation)
+    as (2, h, w) src and dst stacks."""
+    pairs = [_pyramids(dev, [0.0, dx], seed=seed, levels=levels,
+                       roll=0.05 if rot else 0.0)
+             for seed, dx in zip((3, 4), shifts)]
+    return (torch.stack([p[0][lvl] for p in pairs]).contiguous(),
+            torch.stack([p[1][lvl] for p in pairs]).contiguous())
+
+
+def _level_starts(dev, pos, rot, seed):
+    """Start positions 0.4 px (sd) off `pos` and, with rotation, start
+    angles in [-0.2, 0.2) rad."""
+    gen = torch.Generator().manual_seed(seed)
+    start = pos + torch.randn(pos.shape, generator=gen).to(dev) * 0.4
+    theta0 = (torch.rand(pos.shape[0], generator=gen) * 0.4 - 0.2).to(dev)
+    return start.contiguous(), theta0 if rot else torch.zeros_like(theta0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+@pytest.mark.parametrize("n", [1, 37])
+def test_level_kernel_ragged_batch_two_cameras(dev, rot, n):
+    """K2 / K2-rot with N = 1 and N = 37 (not a multiple of the features
+    per block) on two cameras whose features interleave (cam 0, 1, 0, ...),
+    each tracking in its own images."""
+    src, dst = _level_stacks(dev, 1, rot)
+    pos, alive, _ = _points(dev, n=37, seed=5)
+    pos, alive = (pos[-n:] / 2.0).contiguous(), alive[-n:].contiguous()
+    cam = (torch.arange(n, device=dev) % 2).to(torch.int32)
+    start, theta0 = _level_starts(dev, pos, rot, seed=6)
+    args = (src, dst, pos, start, theta0, alive, cam)
+    kw = dict(max_iterations=10, with_rotation=rot)
+    out = kk.klt_level(*args, **kw)
+    torch.cuda.synchronize()
+    ref = kk.klt_level_reference(*args, **kw)
+    _agree(out, ref, failed_keep_source=False)
+    dead = ~alive
+    assert torch.equal(out[0][dead], start[dead])
+    assert torch.equal(out[1][dead], theta0[dead])
+    assert int(out[2].sum()) >= (1 if n == 1 else 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+def test_level_kernel_restages_its_tile(dev, rot):
+    """One level, a shift of (-8, -1.6) px and starts 1.5 px the other way
+    along x: Gauss-Newton travels ~9.5 px, beyond the slack of the tile
+    staged at the start, so the kernel re-stages it around the iterate and
+    must still match the plain version."""
+    p0, p1 = _pyramids(dev, [0.0, 0.2], levels=1)
+    src, dst = p0[0][None].contiguous(), p1[0][None].contiguous()
+    pos, alive, cam = _points(dev)
+    start = (pos + torch.tensor([1.5, 0.0], device=dev)).contiguous()
+    theta0 = torch.zeros(pos.shape[0], device=dev)
+    args = (src, dst, pos, start, theta0, alive, cam)
+    kw = dict(max_iterations=30, with_rotation=rot)
+    out = kk.klt_level(*args, **kw)
+    torch.cuda.synchronize()
+    work = {"templates": 0, "iterations": 0}
+    ref = kk.klt_level_reference(*args, work=work, **kw)
+    # An ok track with a chain of <= 30 links took <= 29 of its 30 steps, so
+    # it converged and its last step moved it < 0.01 px. One that used all
+    # 30 steps oscillates (here, between minima ~10 px apart) and amplifies
+    # rounding, so only converged tracks are held to the position
+    # tolerance; ok is compared on every row.
+    conv = ref[2] & (work["chain"] <= 30)
+    assert torch.equal(out[2], ref[2])
+    _agree(tuple(t[conv] for t in out), tuple(t[conv] for t in ref),
+           failed_keep_source=False)
+    # The tile is staged at floor(start) - 15 and holds a step's support
+    # while floor(iterate) - floor(start) lies in [-7, 8] on both axes
+    # (rotation: a narrower range); a step from outside that range
+    # re-stages it. If a converged track's result lies beyond the range by
+    # more than 0.01 px, its last step started outside it.
+    low = torch.floor(ref[0] + 0.01) - torch.floor(start) <= -8
+    high = torch.floor(ref[0] - 0.01) - torch.floor(start) >= 9
+    restaged = conv & (low | high).any(dim=1)
+    assert int(restaged.sum()) >= 10, "too few tracks left the first tile"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rot", [False, True])
+def test_level_kernel_non_finite_theta0(dev, rot):
+    """Start angles NaN, +inf and -inf. With rotation such a row takes no
+    step and fails: no fault, ok = 0, pos_dst0 and its angle returned bit
+    for bit (its taps are read with bounds checks, not from the tile). The
+    translation variant ignores the angle and returns it. Every other row
+    gets what it gets in a run without those rows."""
+    src, dst = _level_stacks(dev, 1, rot)
+    pos, alive, _ = _points(dev, n=37, seed=5)
+    pos = (pos / 2.0).contiguous()
+    cam = (torch.arange(37, device=dev) % 2).to(torch.int32)
+    start, theta0 = _level_starts(dev, pos, rot, seed=6)
+    bad = torch.tensor([12, 20, 30], device=dev)
+    theta0[bad] = torch.tensor([float("nan"), float("inf"), -float("inf")],
+                               device=dev)
+    good = torch.ones(37, dtype=torch.bool, device=dev)
+    good[bad] = False
+    kw = dict(max_iterations=10, with_rotation=rot)
+
+    def run(rows, th):
+        return kk.klt_level(src, dst, pos[rows].contiguous(),
+                            start[rows].contiguous(), th[rows].contiguous(),
+                            alive[rows].contiguous(), cam[rows].contiguous(),
+                            **kw)
+
+    p, th, ok = run(torch.arange(37, device=dev), theta0)
+    torch.cuda.synchronize()
+    assert bool(alive[bad].all())
+    for a, b in zip((p, th, ok), run(good, theta0)):
+        _same(a[good], b)
+    assert int(ok[good].sum()) >= 20
+    _same(th[bad], theta0[bad])
+    if rot:
+        assert not ok[bad].any()
+        _same(p[bad], start[bad])
+    else:
+        p_0, _, ok_0 = run(bad, torch.zeros_like(theta0))
+        _same(p[bad], p_0)
+        _same(ok[bad], ok_0)
+    rp, rth, rok = kk.klt_level_reference(src, dst, pos, start, theta0,
+                                          alive, cam, **kw)
+    _agree((p, torch.nan_to_num(th), ok), (rp, torch.nan_to_num(rth), rok),
+           failed_keep_source=False)
 
 
 @pytest.mark.gpu

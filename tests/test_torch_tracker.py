@@ -290,6 +290,83 @@ def test_level_kernel_matches_pallas(rot, lvl, mode, lam):
     np.testing.assert_array_equal(tht[8:11], th0[8:11])
 
 
+def _two_camera_level_inputs(rot, n=37):
+    """Level 1 of two cameras' image pairs as (2, H, W) stacks, n features
+    whose cameras interleave (0, 1, 0, ...), start positions 0.5 px off and,
+    with rotation, start angles in +-0.33 rad (just inside the theta gate,
+    0.33^2 < 0.12)."""
+    roll = 0.05 if rot else 0.0
+    pairs = [_views(seed, [0.0, 0.01], roll=roll) for seed in (33, 34)]
+    src, dst = ([tpyr.build_pyramid(tt(p[k]), 2)[1] for p in pairs]
+                for k in (0, 1))
+    rng = np.random.default_rng(35)
+    ps = rng.uniform([2, 2], [W / 2 - 3, H / 2 - 3], size=(n, 2))
+    ps[:3] = [[-3.0, 10.0], [1.5, 1.9], [W / 2 - 2.5, 12.0]]
+    pd = ps + rng.normal(0, 0.5, ps.shape)
+    th0 = (rng.uniform(-0.33, 0.33, n) if rot else np.zeros(n))
+    alive = np.ones(n, bool)
+    alive[[4, 9]] = False
+    cam = (np.arange(n) % 2).astype(np.int32)
+    return (torch.stack(src).contiguous(), torch.stack(dst).contiguous(),
+            ps.astype(np.float32), pd.astype(np.float32),
+            th0.astype(np.float32), alive, cam)
+
+
+@pytest.mark.parametrize("rot", [False, True], ids=["translation", "rot"])
+def test_level_kernel_two_cameras_matches_pallas(rot):
+    """K2's contract on a camera stack: (2, H, W) images, cameras
+    interleaved, N = 37, start angles up to 0.33 rad. Every row is held to
+    Pallas: ok tracks, failed ones at their last Gauss-Newton iterate, dead
+    ones at their start."""
+    src, dst, ps, pd, th0, alive, cam = _two_camera_level_inputs(rot)
+    kw = dict(max_iterations=10, conv_thresh_sq=1e-4, with_rotation=rot)
+    pj, thj, okj = (np.asarray(x) for x in track_level(
+        jnp.asarray(src.numpy()), jnp.asarray(dst.numpy()), jnp.asarray(ps),
+        jnp.asarray(pd), jnp.asarray(th0), jnp.asarray(alive),
+        interpret=True, cam=jnp.asarray(cam), **kw))
+    pt, tht, okt = (x.numpy() for x in kk.klt_level_reference(
+        src, dst, tt(ps), tt(pd), tt(th0), tt(alive), tt(cam), **kw))
+    np.testing.assert_array_equal(okt, okj)
+    assert okj.sum() >= 20, "too few tracks to compare"
+    assert not okt[:3].any(), "a template outside the margin fails"
+    np.testing.assert_allclose(pt, pj, atol=POS_TOL, rtol=0)
+    np.testing.assert_allclose(tht, thj, atol=THETA_TOL, rtol=0)
+    np.testing.assert_array_equal(pt[[4, 9]], pd[[4, 9]])
+    np.testing.assert_array_equal(tht[[4, 9]], th0[[4, 9]])
+
+
+@pytest.mark.parametrize("rot", [False, True], ids=["translation", "rot"])
+def test_level_plain_version_non_finite_theta0(rot):
+    """Start angles NaN, +inf and -inf: with rotation such a row takes no
+    step (its samples are NaN) and fails, keeping pos_dst0 bit for bit and
+    its angle; the translation variant ignores the angle and returns it.
+    Every other row gets what it gets in a run without those rows."""
+    src, dst, ps, pd, th0, alive, cam = _two_camera_level_inputs(rot)
+    bad = np.array([5, 12, 20])
+    th0[bad] = [np.nan, np.inf, -np.inf]
+    good = np.setdiff1d(np.arange(len(ps)), bad)
+    kw = dict(max_iterations=10, conv_thresh_sq=1e-4, with_rotation=rot)
+
+    def run(rows, th):
+        return kk.klt_level_reference(
+            src, dst, tt(ps[rows]), tt(pd[rows]), tt(th[rows]),
+            tt(alive[rows]), tt(cam[rows]), **kw)
+
+    p, th, ok = run(np.arange(len(ps)), th0)
+    p_g, th_g, ok_g = run(good, th0)
+    assert torch.equal(p[good], p_g) and torch.equal(ok[good], ok_g)
+    assert torch.equal(th[good], th_g)
+    assert int(ok_g.sum()) >= 20
+    np.testing.assert_array_equal(th[bad].numpy(), th0[bad])
+    if rot:
+        assert not ok[bad].any()
+        assert torch.equal(p[bad], tt(pd[bad]))
+    else:
+        p_0, _, ok_0 = run(bad, np.zeros_like(th0))
+        assert torch.equal(p[bad], p_0) and torch.equal(ok[bad], ok_0)
+        assert bool(ok_0.all())
+
+
 @pytest.mark.parametrize("backend,interp,want", [
     ("auto", "bilinear", "pallas"), ("pallas", "bilinear", "pallas"),
     ("xla", "bilinear", "xla"), ("auto", "bicubic", "xla"),
