@@ -48,11 +48,30 @@ them. Phases, each of which raises on failure:
   7. mono    — models.mono_tracker at the config/tartanair.yaml values on
                640x480 left-camera bench frames: exactly 1 K1 launch per
                frame after the first, tracked_mean >= 80, kill <= 0.3.
+  8. configs — each shipped stereo VO config (config/euroc_vio.yaml in VO
+               mode, euroc_vo_dynamic, euroc_vo_adaptive, 4seasons, tum_vi)
+               through the port's load_config -> make_estimator_config ->
+               make_estimator_step at its own widths (image shape, camera
+               model and calibration, extrinsics, grid, capacity, levels,
+               iterations, solver and tracker sections as in the file) on
+               the bench plane rendered through its rig
+               (bench_scene.render_rig). One override, printed:
+               keyframe_management.translation_threshold is lowered to
+               0.05 m where larger, or the window never fills in the frames
+               run. 6 warm-up, 30 timed, 20 blocked and 10 split frames
+               each (the per-stage split as in main); the floors of the
+               main path (a config with a fixed PnP motion prior lags by
+               design between keyframes and is held to drift <= 2% at the
+               quality pass's last keyframe), exactly 2 K1 launches per
+               frame, and for the adaptive config the RANSAC gate engaged
+               and won on at least half of the frames after the window
+               fills.
 
 Every path phase sets the launch counts to 0 just before it and reads them
-just after. Prints the card's name and power limit, per-phase numbers, a
-JSON line {"kernels": [...]} and, as the last line, {"ok": true,
-"device": {...}}.
+just after. Drift is against the scene's truth, bench_scene.truth_position
+(0.03 m a frame along the left camera's x axis). Prints the card's name and
+power limit, per-phase numbers, a JSON line {"kernels": [...]} and, as the
+last line, {"ok": true, "device": {...}}.
 """
 
 import json
@@ -65,6 +84,10 @@ import time
 
 WARMUP, TIMED, QUAL, SPLIT = 6, 60, 20, 10
 ROT_TIMED = 30
+CFG_TIMED = 30
+CONFIGS = ("euroc_vio.yaml", "euroc_vo_dynamic.yaml", "euroc_vo_adaptive.yaml",
+           "4seasons.yaml", "tum_vi.yaml")
+KF_TRANSLATION_M = 0.05   # the bench's keyframe translation threshold
 MONO_FRAMES, MONO_WARMUP = 40, 10
 KERNEL_RUNS = 25
 SPIN_CYCLES = 2_000_000   # GPU spin ahead of each timed run (~1 ms)
@@ -83,7 +106,7 @@ REPLACES = {
 # NMS radius and cell size, detection_threshold 2.5 in the reference's
 # x1000 units -> 2.5 / 4000, optical_flow_max_iter 25,
 # optical_flow_lm_lambda 0.1), mapped as rsvio_tpu/cli/run_tartanair.py
-# maps them. The card's machine has no YAML parser, so they are written in.
+# maps them; that CLI's mapping is not ported, so they are written in.
 MONO = dict(levels=5, ratio=0.5, blur_sigma=2.0, radius=15,
             min_score=2.5 / 4000.0, max_iter=25, lm_lambda=0.1,
             capacity=256, shape=(480, 640), fx=320.0)
@@ -432,7 +455,10 @@ def track_points_phase(frames, rolled, dev):
 
 def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
     """Warm-up, timed and blocked quality frames of one estimator config;
-    returns (summary dict, launch counts of the whole run)."""
+    returns (summary dict, launch counts of the whole run, per-frame
+    records of the warm-up, timed and quality frames: n_tracked,
+    n_ransac_inliers, n_pnp_candidates, health and the window's fill
+    before the frame, as numpy arrays)."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
@@ -441,37 +467,59 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
     step = est.make_estimator_step(cfg)
     split = est.make_estimator_split_step(cfg)
     state = est.init_state(cfg, device=dev)
+    rec = []     # device tensors, read after the run: no sync per frame
+
+    def record(kf_before, out):
+        rec.append(torch.stack([
+            out.n_tracked.double(), out.n_ransac_inliers.double(),
+            out.n_pnp_candidates.double(), out.health.double(),
+            kf_before.double()]))
 
     reset_counts()
     k = 0
     for _ in range(WARMUP):
+        kf_before = state.kf_count
         state, out = step(state, rig, *frames[k])
+        record(kf_before, out)
         k += 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
+        kf_before = state.kf_count
         state, out = step(state, rig, *frames[k])
+        record(kf_before, out)
         k += 1
     torch.cuda.synchronize()
     fps = timed / (time.perf_counter() - t0)
 
+    def drift_at(frame, T_W_B):
+        t = T_W_B[:3, 3].double().cpu()
+        truth = bench_scene.truth_position(rig, frame).double().cpu()
+        return t, truth, float(torch.linalg.vector_norm(t - truth) / max(
+            float(torch.linalg.vector_norm(truth)), 1e-9))
+
     tracked, alive, step_ms = [], [], []
-    ba_seen, pose_ok_all = 0, True
+    ba_seen, pose_ok_all, drift_kf = 0, True, float("nan")
     for _ in range(QUAL):
+        kf_before = state.kf_count
         t1 = time.perf_counter()
         state, out = step(state, rig, *frames[k])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
+        record(kf_before, out)
         k += 1
         tracked.append(int(out.n_tracked))
         alive.append(int(out.n_alive))
         ba_seen += int(out.ba_success)
         pose_ok_all = pose_ok_all and bool(out.pose_ok)
+        if bool(out.is_keyframe):
+            drift_kf = drift_at(k - 1, out.T_W_B)[2]
     kill = float(np.mean([1.0 - tracked[i] / max(alive[i - 1], 1)
                           for i in range(1, QUAL)]))
-    x_final = float(out.T_W_B[0, 3])
-    x_truth = bench_scene.STEP_M * (k - 1)
-    drift = abs(x_final - x_truth) / max(abs(x_truth), 1e-9)
+    t_final, t_truth, drift = drift_at(k - 1, out.T_W_B)
+    per_frame = dict(zip(
+        ("n_tracked", "n_ransac_inliers", "n_pnp_candidates", "health",
+         "kf_before"), torch.stack(rec).cpu().numpy().T))
 
     stage_ms = {name: [] for name in est.STAGE_NAMES}
     for _ in range(split_frames):
@@ -483,25 +531,26 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
     summary = {
         "frames_per_s": fps, "blocked_median_ms": statistics.median(step_ms),
         "tracked_mean": float(np.mean(tracked)), "bidir_kill_rate": kill,
-        "x_final": x_final, "x_truth": x_truth, "drift_rel": drift,
-        "ba_fires_in_quality_pass": ba_seen, "pose_ok": pose_ok_all,
-        "frames": k, "launches": c}
+        "t_final": t_final.tolist(), "t_truth": t_truth.tolist(),
+        "drift_rel": drift, "drift_rel_last_kf": drift_kf,
+        "ba_fires_in_quality_pass": ba_seen,
+        "pose_ok": pose_ok_all, "frames": k, "launches": c}
     if split_frames:
         summary["stage_median_ms"] = {n: statistics.median(v)
                                       for n, v in stage_ms.items()}
-    return summary, c
+    return summary, c, per_frame
 
 
-def check_floors(tag, s):
+def check_floors(tag, s, drift_key="drift_rel"):
     check(s["tracked_mean"] >= 80.0, f"{tag}: tracked_mean < 80")
     check(s["bidir_kill_rate"] <= 0.3,
           f"{tag}: kill rate {s['bidir_kill_rate']} > 0.3")
-    check(s["x_final"] == s["x_final"] and abs(s["x_final"]) < 1e6,
+    check(all(v == v and abs(v) < 1e6 for v in s["t_final"]),
           f"{tag}: final pose not finite")
     check(s["pose_ok"], f"{tag}: pose recovery fired in the quality pass")
     check(s["ba_fires_in_quality_pass"] >= 1,
           f"{tag}: BA never fired in the quality pass")
-    check(s["drift_rel"] <= 0.02, f"{tag}: drift {s['drift_rel']} > 0.02")
+    check(s[drift_key] <= 0.02, f"{tag}: {drift_key} {s[drift_key]} > 0.02")
 
 
 def main_phase(frames, dev):
@@ -514,8 +563,8 @@ def main_phase(frames, dev):
            fe.klt.max_iterations, cfg.window_size, tuple(cfg.image_shape))
           == (256, 50, 19, 6, 20, 10, (480, 752)),
           "default config is not the EuRoC bench shape")
-    s, c = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, TIMED,
-                  split_frames=SPLIT)
+    s, c, _ = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, TIMED,
+                     split_frames=SPLIT)
     print("main: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
                 "klt_level": 0},
@@ -532,7 +581,7 @@ def rotation_phase(frames, dev):
 
     cfg = est.EstimatorConfig(
         frontend=FrontendConfig(klt=KLTConfig(track_rotation=True)))
-    s, c = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, ROT_TIMED)
+    s, c, _ = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, ROT_TIMED)
     print("rotation: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": 0, "klt_bidir_rot": 2 * s["frames"],
                 "klt_level": 0},
@@ -592,6 +641,79 @@ def mono_phase(tex, dev):
     return c["klt_bidir"]
 
 
+def configs_phase(tex, dev):
+    """The shipped stereo VO configs end to end; returns the K1 launches of
+    all of them."""
+    import numpy as np
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.utils import config as config_mod
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    total = 0
+    for name in CONFIGS:
+        t0 = time.perf_counter()
+        cfg = config_mod.load_config(os.path.join(root, "config", name))
+        km = cfg.keyframe_management
+        override = None
+        if km.translation_threshold > KF_TRANSLATION_M:
+            override = (f"keyframe_management.translation_threshold "
+                        f"{km.translation_threshold} -> {KF_TRANSLATION_M}")
+            km.translation_threshold = KF_TRANSLATION_M
+        ecfg, rig = config_mod.make_estimator_config(cfg, kind="vo",
+                                                     device=dev)
+        kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
+        frames = [bench_scene.render_rig(tex, rig, kinds, k,
+                                         ecfg.image_shape)
+                  for k in range(WARMUP + CFG_TIMED + QUAL + SPLIT)]
+        s, c, pf = run_vo(ecfg, frames, rig, dev, CFG_TIMED,
+                          split_frames=SPLIT)
+        fe = ecfg.frontend
+        # A fixed PnP motion prior (pnp_motion_prior > 0 without
+        # pnp_prior_adaptive: euroc_vo_dynamic.yaml) holds each frame's
+        # pose near the previous one, so on this clean, moving scene the
+        # poses between keyframes lag the truth by design (the file's own
+        # TRADEOFF note; the JAX package lags alike, tests/
+        # test_torch_config.py::test_dynamic_profile_lags_in_jax_and_in_
+        # the_port) until a keyframe's BA, which has no prior, catches up.
+        # Such a config is held to 2 % at the last keyframe of the quality
+        # pass instead of at its last frame.
+        fixed_prior = (ecfg.pnp.motion_prior_weight > 0.0
+                       and not ecfg.pnp_prior_adaptive)
+        drift_key = "drift_rel_last_kf" if fixed_prior else "drift_rel"
+        line = {k: s[k] for k in (
+            "frames_per_s", "blocked_median_ms", "tracked_mean",
+            "bidir_kill_rate", "drift_rel", "drift_rel_last_kf")}
+        line.update(
+            ba_fires=s["ba_fires_in_quality_pass"], pose_ok=s["pose_ok"],
+            launches=c, frames=s["frames"],
+            image_shape=list(ecfg.image_shape), camera=kinds[0],
+            floor_engaged_frames=int(
+                (pf["n_tracked"] < fe.relax_floor_below).sum()),
+            override=override, drift_checked=drift_key,
+            stage_median_ms=s["stage_median_ms"])
+        full = pf["kf_before"] >= ecfg.window_size
+        if ecfg.pnp.ransac_hypotheses > 0:
+            m = ecfg.pnp.ransac_min_inliers
+            ransac_ok = ((pf["n_ransac_inliers"] >= m)
+                         & (pf["n_pnp_candidates"] >= m))
+            line["health_mean"] = float(np.mean(pf["health"]))
+            line["ransac_ok_share_after_fill"] = float(
+                ransac_ok[full].mean())
+        line["seconds"] = time.perf_counter() - t0
+        print(f"configs[{name}]: " + json.dumps(line), flush=True)
+        check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
+                    "klt_level": 0},
+              f"configs[{name}]: launches {c} for {s['frames']} frames")
+        check_floors(f"configs[{name}]", s, drift_key)
+        if ecfg.pnp.ransac_hypotheses > 0:
+            check(full.any() and line["ransac_ok_share_after_fill"] >= 0.5,
+                  f"configs[{name}]: the RANSAC gate won on only "
+                  f"{line.get('ransac_ok_share_after_fill')} of the frames "
+                  f"after the window filled")
+        total += c["klt_bidir"]
+    return total
+
+
 def kernel_entry(name, launches, rows, extra=None):
     r0 = rows[0]
     e = {"name": name, "route": "cuda", "source": SOURCE,
@@ -645,12 +767,23 @@ def main():
     print(f"render: {n} stereo frames in {time.perf_counter() - t0:.2f}s",
           flush=True)
 
-    kres = kernel_phase(frames, rolled, dev)
-    agree_phase(dev)
-    level_launches = track_points_phase(frames, rolled, dev)
-    launches = main_phase(frames, dev)
-    rot_launches = rotation_phase(frames, dev)
-    mono_launches = mono_phase(tex, dev)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    kres = phase("kernel", kernel_phase, frames, rolled, dev)
+    phase("agree", agree_phase, dev)
+    level_launches = phase("track_points", track_points_phase, frames,
+                           rolled, dev)
+    launches = phase("main", main_phase, frames, dev)
+    rot_launches = phase("rotation", rotation_phase, frames, dev)
+    mono_launches = phase("mono", mono_phase, tex, dev)
+    config_launches = phase("configs", configs_phase, tex, dev)
+    print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
         kernel_entry("klt_bidir", launches,
@@ -659,7 +792,8 @@ def main():
                          for shape in ("stereo", "temporal2048")
                          for k in ("ms", "device_ms", "plain_ms",
                                    "bound_ms", "max_chain", "ns_per_link")},
-                      "launches_mono": mono_launches}),
+                      "launches_mono": mono_launches,
+                      "launches_configs": config_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],

@@ -5,8 +5,9 @@ Port of ``solve_ba`` and its pieces from rsvio_tpu/models/ba.py: the dense
 masked observation tensor obs (W, 2, L, 2) + mask (W, 2, L), one batched
 linearization, einsum normal-equation blocks, closed-form 3x3 landmark
 inverses, a Cholesky solve of the reduced camera system with pose 0
-gauge-fixed, and LM accept/reject with rollback. ``solve_ba_marginalized``
-and observation weights are not ported yet (ROADMAP A13).
+gauge-fixed, LM accept/reject with rollback, and per-observation weights
+(``apply_obs_weights``). ``solve_ba_marginalized`` is not ported yet
+(ROADMAP A13).
 
 Two deliberate differences of form, same results:
   * The JAX ``lax.while_loop`` with early exit becomes a fixed-trip loop of
@@ -93,6 +94,18 @@ def lm_span_gate(lm_active, obs_mask, min_lm_span: int):
         span = obs_mask.any(dim=1).sum(dim=0)
         lm_active = lm_active & (span >= min_lm_span)
     return lm_active
+
+
+def apply_obs_weights(lin, w):
+    """Scale a (W,2,L) Linearization by per-slot sqrt-weights w (W,L): the
+    whitened residual and Jacobians by w, the robust cost by w^2 (the Huber
+    threshold still applies to the unweighted residual)."""
+    sw = w[:, None, :, None]                    # (W,1,L,1)
+    return lin._replace(
+        r=lin.r * sw,
+        J_pose=lin.J_pose * sw[..., None],
+        J_lm=lin.J_lm * sw[..., None],
+        cost=lin.cost * (w[:, None, :] ** 2))
 
 
 def stereo_observability_mask(obs_mask, lm_valid):
@@ -198,12 +211,13 @@ def _sel(c, new, old):
 
 
 def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
-             cfg: BAConfig = BAConfig()) -> BAResult:
+             cfg: BAConfig = BAConfig(), obs_weight=None) -> BAResult:
     """Sliding-window bundle adjustment.
 
     T_W_B (W,4,4) keyframe poses, T_C_B (2,4,4) stereo extrinsics,
     landmarks (L,3), obs (W,2,L,2) normalized observations, obs_mask
-    (W,2,L), lm_valid (L,). On failure the inputs come back unchanged.
+    (W,2,L), lm_valid (L,), optional obs_weight (W,L) per-observation
+    sqrt-weights. On failure the inputs come back unchanged.
     """
     dtype, dev = T_W_B.dtype, T_W_B.device
     W = T_W_B.shape[0]
@@ -218,6 +232,8 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
     def lin_sys(T_B_W, lms, mask):
         lin = _linearize_all(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)
+        if obs_weight is not None:
+            lin = apply_obs_weights(lin, obs_weight)
         r_sq = (lin.r ** 2).sum(-1)
         return build_normal_equations(lin), lin.cost.sum(), r_sq
 

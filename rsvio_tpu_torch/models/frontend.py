@@ -9,8 +9,9 @@ second launch), and births into free table slots. All shapes are static;
 births compact into free slots through a stable argsort and a cumsum, with
 no data-dependent shapes and no host sync.
 
-Not ported yet: the starvation floor (``relax_floor_below > 0``); it raises
-(ROADMAP A6, A13).
+The starvation floor (``relax_floor_below > 0``) stays on the device: the
+starving flag is a tensor, grid mode computes both selections and picks one
+with ``torch.where``.
 """
 
 from __future__ import annotations
@@ -46,10 +47,6 @@ def check_config(cfg: FrontendConfig) -> None:
     values."""
     if cfg.detect_mode not in ("grid", "nms"):
         raise ValueError(f"unknown detect_mode {cfg.detect_mode!r}")
-    if cfg.relax_floor_below > 0:
-        raise NotImplementedError(
-            "the starvation floor (relax_floor_below > 0) is not ported yet "
-            "(ROADMAP A6, A13)")
     klt.resolve_backend(cfg.klt)
 
 
@@ -163,16 +160,45 @@ def frontend_step(table: FeatureTable, pyr0_prev, pyr1_prev, pyr0, pyr1,
 
     # (c) detect new corners on cam0 level 0, away from live tracks.
     score = detect.fast_score(pyr0[0])
+    starving = None
+    floor = cfg.min_score
+    if cfg.relax_floor_below > 0:
+        # Starvation floor: too few live tracks lower the score floor.
+        starving = table.alive.sum() < cfg.relax_floor_below
+        floor = torch.where(
+            starving, torch.tensor(cfg.relaxed_min_score, dtype=score.dtype,
+                                   device=score.device),
+            torch.tensor(cfg.min_score, dtype=score.dtype,
+                         device=score.device))
     if cfg.detect_mode == "nms":
         cand_xy, cand_ok = detect.nms_select(
             score, table.pos0, table.alive, cfg.nms_radius,
-            margin=cfg.detect_margin, min_score=cfg.min_score,
+            margin=cfg.detect_margin, min_score=floor,
             max_new=cfg.nms_max_new)
-    else:
+    elif starving is None:
         cand_xy, cand_ok = detect.select_grid_features(
             score, table.pos0, table.alive, cfg.cell_size,
             margin=cfg.detect_margin, min_score=cfg.min_score,
             max_per_cell=cfg.max_per_cell)
+    else:
+        # Both selections at k picks per cell, one chosen on the device:
+        # strict = cell occupancy, the first max_per_cell picks, the strict
+        # floor; starving = distance occupancy, all k picks, the relaxed
+        # floor.
+        k = max(cfg.max_per_cell, cfg.relax_max_per_cell)
+        xy_s, ok_s = detect.select_grid_features(
+            score, table.pos0, table.alive, cfg.cell_size,
+            margin=cfg.detect_margin, min_score=cfg.min_score,
+            max_per_cell=k, cell_occupancy=True)
+        n_cells = ok_s.shape[0] // k
+        rnd = torch.arange(ok_s.shape[0], device=ok_s.device) // n_cells
+        ok_s = ok_s & (rnd < cfg.max_per_cell)
+        xy_r, ok_r = detect.select_grid_features(
+            score, table.pos0, table.alive, cfg.cell_size,
+            margin=cfg.detect_margin, min_score=cfg.relaxed_min_score,
+            max_per_cell=k, cell_occupancy=False)
+        cand_xy = torch.where(starving, xy_r, xy_s)
+        cand_ok = torch.where(starving, ok_r, ok_s)
 
     # (d) stereo-match candidates cam0 -> cam1 (second launch).
     cand_pos1, cand_A1, stereo_ok = klt.track_points_bidirectional(

@@ -1,8 +1,9 @@
 """PnP motion tracking: Levenberg-Marquardt over one SE(3) pose against
 fixed map points.
 
-Port of ``solve_pnp`` from rsvio_tpu/models/pnp.py, with the chi^2 gate and
-the motion prior. ``ransac_pnp_gate`` is not ported yet (ROADMAP A13).
+Port of rsvio_tpu/models/pnp.py: ``solve_pnp`` with the chi^2 gate, the
+motion prior (scaled at run time by ``prior_scale``) and per-slot
+observation weights, and the RANSAC consensus pre-gate ``ransac_pnp_gate``.
 
 As in ``models.ba``: the JAX ``lax.while_loop`` becomes a fixed-trip loop
 that freezes its carry once ``done`` is set, and the 6x6 damped solve uses
@@ -60,17 +61,21 @@ class PnPResult(NamedTuple):
 def solve_or_nan(A, b):
     """Solve A x = b; NaNs for a singular A instead of an exception."""
     x, info = torch.linalg.solve_ex(A, b)
-    return torch.where(info == 0, x, torch.full_like(x, torch.nan))
+    ok = (info == 0).reshape(info.shape + (1,) * (x.dim() - info.dim()))
+    return torch.where(ok, x, torch.full_like(x, torch.nan))
 
 
 def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
-              cfg: PnPConfig = PnPConfig(), T_W_B_prior=None) -> PnPResult:
+              cfg: PnPConfig = PnPConfig(), T_W_B_prior=None,
+              obs_weight=None, prior_scale=None) -> PnPResult:
     """Levenberg-Marquardt pose-only solve.
 
     T_W_B_init (4,4), T_C_B (2,4,4), landmarks (L,3), obs (2,L,2)
     normalized observations, mask (2,L) bool. T_W_B_prior anchors the
-    optional motion prior (defaults to the init). On failure T_W_B is the
-    init.
+    optional motion prior (defaults to the init); prior_scale, a 0-d
+    tensor, multiplies its weight. obs_weight (L,) scales each slot's
+    whitened residuals and Jacobians (its cost by the square). On failure
+    T_W_B is the init.
     """
     dtype, dev = T_W_B_init.dtype, T_W_B_init.device
     T_B_W0 = lie.se3_inverse(T_W_B_init)
@@ -83,6 +88,10 @@ def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
     def linearize(T_B_W, m):
         lin = linearize_projection(T_C_B[:, None], T_B_W, landmarks[None],
                                    obs, m, cfg.huber_delta)
+        if obs_weight is not None:
+            sw = obs_weight[None, :, None]
+            lin = lin._replace(r=lin.r * sw, J_pose=lin.J_pose * sw[..., None],
+                               cost=lin.cost * obs_weight[None, :] ** 2)
         J = lin.J_pose.reshape(-1, 6)
         r = lin.r.reshape(-1)
         H = J.T @ J
@@ -90,6 +99,8 @@ def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
         cost = lin.cost.sum()
         if cfg.motion_prior_weight > 0.0:
             w = cfg.motion_prior_weight
+            if prior_scale is not None:
+                w = w * prior_scale
             dt_p = T_B_W[:3, 3] - T_B_W_prior[:3, 3]
             dw_p = lie.so3_log(T_B_W_prior[:3, :3].T @ T_B_W[:3, :3])
             d = torch.cat([dt_p, dw_p])
@@ -165,3 +176,90 @@ def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
     T_W_B = torch.where(success, lie.se3_inverse(T), T_W_B_init)
     return PnPResult(T_W_B=T_W_B, success=success, status=status,
                      final_cost=cost, iterations=it, metrics=metrics)
+
+
+def ransac_pnp_gate(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel,
+                    cfg: PnPConfig, age=None):
+    """Batched RANSAC consensus gate for pose-only tracking.
+
+    K = cfg.ransac_hypotheses minimal samples of S = cfg.ransac_sample
+    distinct valid observations are drawn at once (Gumbel-top-S over the
+    valid mask, age-weighted), K damped Gauss-Newton pose solves run as one
+    batched program, every observation is verified against every
+    hypothesis (K x 2L), and the age-weighted vote picks the winner.
+
+    T_W_B_init (4,4) seeds every hypothesis; T_C_B (2,4,4); landmarks
+    (L,3); obs (2,L,2); mask (2,L). gumbel (K, 2L) are the Gumbel(0, 1)
+    draws (the caller's; the JAX package draws them from a threefry key,
+    which torch cannot reproduce, so tests pass the same draws to both).
+    age (L,) int track ages weight votes and draws by clip(age / age_cap,
+    age_floor, 1); None = unweighted.
+
+    Returns (inlier_mask (2,L), ok (), best_count () int32): when ok the
+    winning consensus set (a subset of mask); below the consensus floor the
+    gate disengages and mask comes back unchanged.
+    """
+    S = cfg.ransac_sample
+    L = landmarks.shape[0]
+    dtype, dev = T_W_B_init.dtype, T_W_B_init.device
+    T_B_W0 = lie.se3_inverse(T_W_B_init)
+    flat_mask = mask.reshape(-1)                            # (2L,)
+    n_valid = flat_mask.sum()
+
+    if age is not None and cfg.ransac_age_cap > 0:
+        vote_w = torch.clamp(age.to(dtype) / cfg.ransac_age_cap,
+                             cfg.ransac_age_floor, 1.0)      # (L,)
+    else:
+        vote_w = torch.ones(L, dtype=dtype, device=dev)
+    flat_w = vote_w.repeat(2)                               # (2L,)
+
+    # Gumbel-top-S: S distinct valid indices per hypothesis, index i drawn
+    # with probability proportional to its weight. A stable descending sort
+    # keeps the lower index first on ties (-inf rows when fewer than S are
+    # valid), as lax.top_k does; torch.topk does not promise that order.
+    g = gumbel.to(dtype) + torch.log(flat_w)
+    scores = torch.where(flat_mask[None, :], g,
+                         torch.full_like(g, -torch.inf))
+    idx = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :S]
+    cam_i, lm_i = idx // L, idx % L                         # (K,S)
+
+    Tcb = T_C_B[cam_i]                                      # (K,S,4,4)
+    p = landmarks[lm_i]                                     # (K,S,3)
+    o = obs[cam_i, lm_i]                                    # (K,S,2)
+    m = mask[cam_i, lm_i]                                   # (K,S)
+    K = idx.shape[0]
+    eye6 = 1e-4 * torch.eye(6, dtype=dtype, device=dev)
+    T = T_B_W0.expand(K, 4, 4)
+    for _ in range(cfg.ransac_gn_iters):
+        lin = linearize_projection(Tcb, T[:, None], p, o, m, cfg.huber_delta)
+        J = lin.J_pose.reshape(K, -1, 6)
+        r = lin.r.reshape(K, -1)
+        H = J.transpose(1, 2) @ J + eye6
+        delta = -solve_or_nan(H, (J.transpose(1, 2) @ r[..., None])[..., 0])
+        ok_step = torch.isfinite(delta).all(dim=1, keepdim=True)
+        T = lie.se3_retract_split(T, torch.where(ok_step, delta,
+                                                 torch.zeros_like(delta)))
+
+    # Verify: squared reprojection error of every observation under every
+    # hypothesis, (K, 2, L); behind the camera counts as infinite.
+    R_bw, t_bw = T[:, None, None, :3, :3], T[:, None, None, :3, 3]
+    R_cb, t_cb = T_C_B[None, :, None, :3, :3], T_C_B[None, :, None, :3, 3]
+    p_B = (R_bw @ landmarks[None, None, :, :, None])[..., 0] + t_bw
+    p_C = (R_cb @ p_B[..., None])[..., 0] + t_cb            # (K,2,L,3)
+    in_front = p_C[..., 2] > 1e-6
+    z = torch.where(in_front, p_C[..., 2], torch.ones_like(p_C[..., 2]))
+    e = ((p_C[..., :2] / z[..., None] - obs[None]) ** 2).sum(-1)
+    r2 = torch.where(in_front, e, torch.full_like(e, torch.inf))
+    finite = torch.isfinite(T).flatten(1).all(dim=1)        # (K,)
+    inliers = (mask[None] & (r2 < cfg.ransac_threshold ** 2)
+               & finite[:, None, None])                     # (K,2,L)
+
+    # Winner by age-weighted vote; the consensus floor is an unweighted
+    # count. argmax takes the first maximum, as jnp.argmax.
+    wcounts = (inliers.to(dtype) * vote_w[None, None, :]).sum(dim=(1, 2))
+    best = torch.argmax(wcounts)
+    best_inl = inliers[best]
+    best_count = best_inl.to(torch.int32).sum(dtype=torch.int32)
+    ok = ((best_count >= cfg.ransac_min_inliers)
+          & (n_valid >= cfg.ransac_min_inliers))
+    return torch.where(ok, best_inl, mask), ok, best_count

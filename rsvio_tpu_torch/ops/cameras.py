@@ -1,12 +1,14 @@
-"""Camera models: pinhole-radtan (OpenCV 5-coefficient) on batched tensors.
+"""Camera models: pinhole-radtan (OpenCV 5-coefficient) and EUCM on batched
+tensors.
 
-Port of rsvio_tpu/ops/cameras.py for the stereo VO main path. Parameters use
-the same fixed-width packing, so a stereo pair is one (2, 10) tensor:
+Port of rsvio_tpu/ops/cameras.py. Parameters use the same fixed-width
+packing, so a stereo pair is one (2, 10) tensor:
   pinhole-radtan: [fx, fy, cx, cy, k1, k2, p1, p2, k3, 0]
+  EUCM:           [fx, fy, cx, cy, alpha, beta, 0, 0, 0, 0]
 Points are batched: ``p_cam`` is (..., 3), ``uv`` is (..., 2); ``params`` is
-(10,) or broadcastable (..., 10).
-
-EUCM is not ported yet (ROADMAP A3); asking for it raises.
+(10,) or broadcastable (..., 10). The model kind is a string, matched
+without case; an unknown kind raises (the JAX package takes any kind other
+than EUCM as pinhole-radtan).
 """
 
 from __future__ import annotations
@@ -82,9 +84,55 @@ def radtan_unproject(params, uv):
     return torch.stack([x, y], dim=-1)
 
 
+def eucm_project(params, p_cam):
+    """EUCM projection: d = sqrt(beta (x^2 + y^2) + z^2), den = alpha d +
+    (1 - alpha) z. valid needs den > 0 and z > -w d with w = alpha /
+    (1 - alpha) for alpha <= 0.5, else (1 - alpha) / alpha."""
+    fx, fy, cx, cy, alpha, beta = _coeffs(params)[:6]
+    x, y, z = p_cam[..., 0], p_cam[..., 1], p_cam[..., 2]
+    d = torch.sqrt(beta * (x * x + y * y) + z * z)
+    den = alpha * d + (1.0 - alpha) * z
+    w = torch.where(alpha <= 0.5, alpha / torch.clamp(1.0 - alpha, min=1e-6),
+                    (1.0 - alpha) / torch.clamp(alpha, min=1e-6))
+    valid = (den > 1e-6) & (z > -w * d)
+    den_safe = torch.where(den > 1e-6, den, torch.ones_like(den))
+    uv = torch.stack([fx * x / den_safe + cx, fy * y / den_safe + cy], dim=-1)
+    return uv, valid
+
+
+def eucm_unproject(params, uv):
+    """Closed-form EUCM unprojection -> normalized coords at z=1. Beyond
+    the model's 90-degree ray mz is negative and the result is the
+    opposite ray's normalized coordinates, as in the JAX package."""
+    fx, fy, cx, cy, alpha, beta = _coeffs(params)[:6]
+    mx = (uv[..., 0] - cx) / fx
+    my = (uv[..., 1] - cy) / fy
+    r2 = mx * mx + my * my
+    gamma = 1.0 - alpha
+    inner = torch.clamp(1.0 - (2.0 * alpha - 1.0) * beta * r2, min=1e-9)
+    mz = (1.0 - beta * alpha * alpha * r2) / (alpha * torch.sqrt(inner)
+                                              + gamma)
+    mz_safe = torch.where(torch.abs(mz) > 1e-9, mz, torch.full_like(mz, 1e-9))
+    return torch.stack([mx / mz_safe, my / mz_safe], dim=-1)
+
+
+def _is_eucm(kind: str) -> bool:
+    k = kind.lower()
+    if k not in (PINHOLE_RADTAN, EUCM):
+        raise ValueError(f"unknown camera model {kind!r}")
+    return k == EUCM
+
+
+def project(kind: str, params, p_cam):
+    """(..., 3) camera-frame points -> ((..., 2) pixels, (...) valid) for
+    camera model `kind`."""
+    if _is_eucm(kind):
+        return eucm_project(params, p_cam)
+    return radtan_project(params, p_cam)
+
+
 def unproject(kind: str, params, uv):
     """Pixels -> normalized coords for camera model `kind`."""
-    if kind.lower() == EUCM:
-        raise NotImplementedError(
-            "EUCM camera model is not ported yet (ROADMAP A3)")
+    if _is_eucm(kind):
+        return eucm_unproject(params, uv)
     return radtan_unproject(params, uv)

@@ -1,8 +1,7 @@
 """Feature detection: whole-image FAST-9 and Shi-Tomasi scores, grid-cell
 selection and block non-max suppression.
 
-Port of rsvio_tpu/ops/detect.py. The starvation form of grid selection
-(``cell_occupancy=False``, ROADMAP A6) is not ported yet and raises.
+Port of rsvio_tpu/ops/detect.py.
 
 Integer semantics follow the reference exactly: float floor division is
 ``torch.div(..., rounding_mode="floor")``, float->int conversion truncates
@@ -148,11 +147,10 @@ def select_grid_features(score, occupied_xy, occupied_mask, cell_size: int,
     score (H, W); occupied_xy (N, 2) live positions (x, y); occupied_mask
     (N,) bool. Returns (cand_xy (C*max_per_cell, 2) float, cand_ok (C*k,)
     bool), grouped by pick round, cells in row-major order.
+    cell_occupancy=False is the starvation form: instead of closing its
+    whole cell, a live track suppresses the (2 min_dist + 1)^2 box of score
+    pixels around its rounded position.
     """
-    if not cell_occupancy:
-        raise NotImplementedError(
-            "distance-based occupancy (the starvation path) is not ported "
-            "yet (ROADMAP A6)")
     H, W = score.shape
     dev = score.device
     gh, gw = H // cell_size, W // cell_size
@@ -161,19 +159,31 @@ def select_grid_features(score, occupied_xy, occupied_mask, cell_size: int,
     in_border = ((yy >= margin) & (yy < H - margin)
                  & (xx >= margin) & (xx < W - margin))
     s = torch.where(in_border, score, torch.full_like(score, -torch.inf))
+    if cell_occupancy:
+        occ_col = torch.clamp(torch.div(occupied_xy[:, 0], cell_size,
+                                        rounding_mode="floor").to(torch.int32),
+                              0, gw - 1)
+        occ_row = torch.clamp(torch.div(occupied_xy[:, 1], cell_size,
+                                        rounding_mode="floor").to(torch.int32),
+                              0, gh - 1)
+        occ_idx = (occ_row * gw + occ_col).to(torch.int64)
+        occ = torch.zeros(gh * gw, dtype=torch.int32,
+                          device=dev).scatter_reduce(
+            0, occ_idx, occupied_mask.to(torch.int32), reduce="amax") > 0
+    else:
+        occ_x = torch.clamp(torch.round(occupied_xy[:, 0]).to(torch.int64),
+                            0, W - 1)
+        occ_y = torch.clamp(torch.round(occupied_xy[:, 1]).to(torch.int64),
+                            0, H - 1)
+        hit = torch.zeros(H * W, dtype=score.dtype, device=dev).scatter_reduce(
+            0, occ_y * W + occ_x, occupied_mask.to(score.dtype),
+            reduce="amax").reshape(H, W)
+        near = _max_pool(hit, 2 * min_dist + 1) > 0
+        s = torch.where(near, torch.full_like(s, -torch.inf), s)
+        occ = torch.zeros(gh * gw, dtype=torch.bool, device=dev)
     s = s[: gh * cell_size, : gw * cell_size]
     cells = (s.reshape(gh, cell_size, gw, cell_size).permute(0, 2, 1, 3)
              .reshape(gh * gw, cell_size, cell_size))
-
-    occ_col = torch.clamp(torch.div(occupied_xy[:, 0], cell_size,
-                                    rounding_mode="floor").to(torch.int32),
-                          0, gw - 1)
-    occ_row = torch.clamp(torch.div(occupied_xy[:, 1], cell_size,
-                                    rounding_mode="floor").to(torch.int32),
-                          0, gh - 1)
-    occ_idx = (occ_row * gw + occ_col).to(torch.int64)
-    occ = torch.zeros(gh * gw, dtype=torch.int32, device=dev).scatter_reduce(
-        0, occ_idx, occupied_mask.to(torch.int32), reduce="amax") > 0
 
     cell = torch.arange(gh * gw, dtype=torch.int32, device=dev)
     cell_row, cell_col = cell // gw, cell % gw

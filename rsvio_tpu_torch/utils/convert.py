@@ -4,7 +4,11 @@ This system's counterpart of carrying weights across: a test can start both
 steps from the same mid-sequence state. The inputs are the JAX package's
 ``CameraRig`` / ``EstimatorState`` with numpy leaves (for example
 ``jax.tree_util.tree_map(np.asarray, state)``); any object with the same
-field names works. Nothing here imports JAX or rsvio_tpu.
+field names works. Every field is carried by name, so the optional state
+(the RANSAC gate's ``lm_birth`` and ``health_ema``), the table's weights
+``w`` and ages, and an EUCM rig's parameters come across as they are; a
+field the JAX state leaves None stays None. Nothing here imports JAX or
+rsvio_tpu.
 """
 
 from __future__ import annotations

@@ -40,6 +40,7 @@ from rsvio_tpu_torch.models import mono_tracker as tmono
 from rsvio_tpu_torch.models import pnp as tpnp
 from rsvio_tpu_torch.ops import cameras as tcam
 from rsvio_tpu_torch.ops import klt as tklt
+from rsvio_tpu_torch.utils import config as tconfig
 from rsvio_tpu_torch.utils import convert
 
 torch.set_num_threads(2)
@@ -135,6 +136,7 @@ def test_config_fields_and_defaults_equal(pair):
 def test_state_and_output_fields_equal():
     for cj, ct in ((jest.EstimatorState, test_.EstimatorState),
                    (jest.FrameOutput, test_.FrameOutput),
+                   (jest.MotionOut, test_.MotionOut),
                    (jest.CameraRig, test_.CameraRig),
                    (jfe.FeatureTable, tfe.FeatureTable)):
         assert cj._fields == ct._fields
@@ -225,22 +227,16 @@ def test_split_step_matches_fused_step(torch_step):
         assert int(o1.n_alive) == int(o2.n_alive)
 
 
+# The options ported since (score weights, the starvation floor, EUCM, the
+# RANSAC gate and the adaptive health) are held to JAX by
+# tests/test_torch_options.py::test_ported_option_runs_and_matches_jax.
 UNPORTED = [
     pytest.param(dict(use_marginalization=True), id="use_marginalization"),
     pytest.param(dict(dynamic_flow_thresh=0.02), id="dynamic_flow_thresh"),
     pytest.param(dict(refine_births=True), id="refine_births"),
     pytest.param(dict(cull_reproj_threshold=0.01), id="cull_reproj"),
-    pytest.param(dict(use_obs_weights=True), id="use_obs_weights"),
     pytest.param(dict(pnp_cv_predict=True), id="pnp_cv_predict"),
-    pytest.param(dict(pnp_prior_adaptive=True), id="pnp_prior_adaptive"),
-    pytest.param(dict(vision_weight_adaptive=True), id="vision_weight"),
-    pytest.param(dict(health_recover=0.5), id="health_recover"),
-    pytest.param(dict(obs_weight_age_ramp=0.1), id="age_ramp"),
-    pytest.param(dict(cam_kind_l="eucm"), id="eucm"),
     pytest.param(dict(track_before_full=False), id="track_before_full"),
-    pytest.param(dict(pnp=tpnp.PnPConfig(ransac_hypotheses=16)), id="ransac"),
-    pytest.param(dict(frontend=tfe.FrontendConfig(relax_floor_below=40)),
-                 id="starvation_floor"),
 ]
 
 
@@ -248,6 +244,25 @@ UNPORTED = [
 def test_unported_options_raise(opt):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         test_.make_estimator_step(test_.EstimatorConfig(**opt))
+
+
+@pytest.mark.parametrize("opt", [
+    dict(pnp_prior_adaptive=True, pnp=dict(motion_prior_weight=20.0)),
+    dict(vision_weight_adaptive=True, use_obs_weights=True),
+    dict(pnp_prior_adaptive=True, pnp=dict(ransac_hypotheses=8)),
+    dict(vision_weight_adaptive=True, pnp=dict(ransac_hypotheses=8)),
+], ids=["prior_without_gate", "vision_without_gate", "prior_without_weight",
+        "vision_without_weights"])
+def test_inert_adaptive_knobs_raise_as_in_jax(opt):
+    """The adaptive defenses need the gate and their channel: both steps
+    refuse the config with ValueError."""
+    pnp = opt.pop("pnp", {})
+    with pytest.raises(ValueError):
+        jest.make_estimator_step(jest.EstimatorConfig(
+            pnp=jpnp.PnPConfig(**pnp), **opt))
+    with pytest.raises(ValueError):
+        test_.make_estimator_step(test_.EstimatorConfig(
+            pnp=tpnp.PnPConfig(**pnp), **opt))
 
 
 TRACKER_OPTIONS = [
@@ -332,12 +347,16 @@ def _default_device_calls():
             tcam.PINHOLE_RADTAN, [1.0, 1.0, 0.0, 0.0], [])),
         "init_mono_table": (tmono.init_mono_table,
                             lambda: tmono.init_mono_table(8)),
+        "make_estimator_config": (
+            tconfig.make_estimator_config,
+            lambda: tconfig.make_estimator_config(tconfig.Config())),
     }
 
 
 @pytest.mark.parametrize("name", [
     "init_state", "init_table", "empty_prior", "make_rig", "rig_from_numpy",
-    "state_from_numpy", "pack_params", "init_mono_table"])
+    "state_from_numpy", "pack_params", "init_mono_table",
+    "make_estimator_config"])
 def test_entry_points_default_to_cuda(name):
     """Entry points run on the card unless the caller asks for the CPU:
     their device default is CUDA, and without a card the default raises

@@ -15,7 +15,18 @@ kernel's tiles are staged there too (clamped, as the plain version's
 windows); further cases cover, for both kernels, ragged batches,
 interleaved cameras and a tile re-stage, and for ``klt_level`` non-finite
 start angles.
+
+The option paths of the shipped configs: the YAML loader without PyYAML
+(this test needs no card), each shipped stereo config's rig on the card
+equal to the CPU's, EUCM and radtan ``unproject`` and ``ransac_pnp_gate``
+on CUDA against the CPU (1e-5 relative; the gate's mask, ok and count
+equal), and the adaptive config's step on CUDA (kernel) against the CPU
+(plain version) to the whole-step tolerance below.
 """
+
+import glob
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,10 +34,15 @@ import torch
 
 from rsvio_tpu_torch.data import bench_scene
 from rsvio_tpu_torch.models import estimator as est
+from rsvio_tpu_torch.models import pnp as pnp_mod
 from rsvio_tpu_torch.models.frontend import FrontendConfig
-from rsvio_tpu_torch.ops import klt, pyramid
+from rsvio_tpu_torch.ops import cameras, klt, lie, pyramid
 from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 from rsvio_tpu_torch.ops.klt import KLTConfig
+from rsvio_tpu_torch.utils import config as config_mod
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "config")
 
 POS_TOL = 1e-3
 THETA_TOL = 1e-4
@@ -423,3 +439,123 @@ def test_step_on_cuda_matches_cpu(dev):
         assert bool(oc.is_keyframe) == bool(og.is_keyframe)
         assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 1e-3
     assert float(outs["cuda"][-1].T_W_B[0, 3]) > 0.05
+
+
+def test_config_loader_needs_no_pyyaml(monkeypatch):
+    """Every shipped config loads with PyYAML unimportable."""
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    paths = sorted(glob.glob(os.path.join(CONFIG_DIR, "*.yaml")))
+    assert len(paths) == 6
+    for p in paths:
+        cfg = config_mod.load_config(p)
+        assert cfg.camera.image_width > 0
+    cfg = config_mod.load_config(os.path.join(CONFIG_DIR, "tum_vi.yaml"))
+    assert cfg.camera.left_model == "EUCM"
+    assert cfg.camera.left_distortion == [0.6246288732884442,
+                                          1.0598071085569876]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["euroc_vio", "euroc_vo_dynamic",
+                                  "euroc_vo_adaptive", "4seasons", "tum_vi"])
+def test_config_rig_on_cuda_equals_cpu(dev, name):
+    cfg = config_mod.load_config(os.path.join(CONFIG_DIR, name + ".yaml"))
+    ecfg_g, rig_g = config_mod.make_estimator_config(cfg, device=dev)
+    ecfg_c, rig_c = config_mod.make_estimator_config(cfg, device="cpu")
+    assert ecfg_g == ecfg_c
+    for a, b in zip(rig_g, rig_c):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,intr,dist", [
+    ("EUCM", [191.7556, 191.7482, 254.9226, 256.8780], [0.6246, 1.0598]),
+    ("pinhole-radtan", [458.654, 457.296, 367.215, 248.375],
+     [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05])])
+def test_unproject_on_cuda_matches_cpu(dev, kind, intr, dist):
+    p = cameras.pack_params(kind, intr, dist, device="cpu")
+    g = torch.arange(-8.0, 760.0, 6.0)
+    uv = torch.stack(torch.meshgrid(g, g[:90], indexing="xy"),
+                     dim=-1).reshape(-1, 2)
+    xy_c = cameras.unproject(kind, p, uv)
+    xy_g = cameras.unproject(kind, p.to(dev), uv.to(dev))
+    assert xy_g.is_cuda
+    torch.testing.assert_close(xy_g.cpu(), xy_c, rtol=1e-5, atol=1e-6)
+    pts = torch.cat([xy_c, torch.ones_like(xy_c[:, :1])], dim=1)
+    uv_c, ok_c = cameras.project(kind, p, pts)
+    uv_g, ok_g = cameras.project(kind, p.to(dev), pts.to(dev))
+    assert torch.equal(ok_g.cpu(), ok_c)
+    torch.testing.assert_close(uv_g.cpu(), uv_c, rtol=1e-5, atol=1e-3)
+
+
+def _gate_problem(seed=3, n=48):
+    """A stereo PnP problem with a coherent group of 30 % outliers."""
+    gen = torch.Generator().manual_seed(seed)
+    T_C_B = torch.eye(4).repeat(2, 1, 1)
+    T_C_B[1, 0, 3] = -0.11
+    T_W_B = lie.se3_exp(torch.tensor([0.1, -0.05, 0.2, 0.02, -0.03, 0.01]))
+    p_B = torch.rand((n, 3), generator=gen) * torch.tensor([3.0, 2.0, 4.0]) \
+        + torch.tensor([-1.5, -1.0, 2.0])
+    p_W = p_B @ T_W_B[:3, :3].T + T_W_B[:3, 3]
+    p_C = p_B[None] + T_C_B[:, None, :3, 3]
+    obs = p_C[..., :2] / p_C[..., 2:]
+    obs[:, torch.arange(n) % 10 < 3] += torch.tensor([0.06, -0.03])
+    mask = torch.ones((2, n), dtype=torch.bool)
+    T_init = T_W_B @ lie.se3_exp(torch.tensor([0.02, 0.01, -0.02, 0.01,
+                                               0.0, -0.01]))
+    age = torch.randint(0, 25, (n,), generator=gen, dtype=torch.int32)
+    gumbel = -torch.log(torch.empty((16, 2 * n)).exponential_(generator=gen))
+    return T_init, T_C_B, p_W, obs, mask, gumbel, age
+
+
+@pytest.mark.gpu
+def test_ransac_gate_on_cuda_matches_cpu(dev):
+    args = _gate_problem()
+    cfg = pnp_mod.PnPConfig(ransac_hypotheses=16)
+    inl_c, ok_c, n_c = pnp_mod.ransac_pnp_gate(*args[:-1], cfg, age=args[-1])
+    inl_g, ok_g, n_g = pnp_mod.ransac_pnp_gate(
+        *(a.to(dev) for a in args[:-1]), cfg, age=args[-1].to(dev))
+    assert inl_g.is_cuda
+    assert torch.equal(inl_g.cpu(), inl_c)
+    assert bool(ok_g) == bool(ok_c) is True
+    assert int(n_g) == int(n_c)
+    assert not inl_c[:, torch.arange(48) % 10 < 3].any()
+
+
+@pytest.mark.gpu
+def test_adaptive_step_on_cuda_matches_cpu(dev):
+    """The adaptive config's options (score weights, starvation floor,
+    RANSAC gate with its draws, adaptive prior and vision weights, health
+    hysteresis) through the whole step: CUDA (kernel) vs CPU (plain)."""
+    shape = (96, 128)
+    cfg = est.EstimatorConfig(
+        frontend=FrontendConfig(capacity=32, cell_size=24, detect_margin=10,
+                                relax_floor_below=16,
+                                klt=KLTConfig(levels=3, max_iterations=8)),
+        window_size=4, image_shape=shape, use_obs_weights=True,
+        pnp=pnp_mod.PnPConfig(ransac_hypotheses=8, motion_prior_weight=20.0),
+        pnp_prior_adaptive=True, vision_weight_adaptive=True,
+        health_recover=0.5, health_f_lo=0.9, health_f_hi=1.1)
+    tex = bench_scene.make_texture(1, size=768,
+                                   octaves=((90.0, 24), (60.0, 96)))
+    frames = bench_scene.stereo_frames(tex, 8, step_m=0.02, shape=shape,
+                                       fx=100.0, plane_z=4.0, scale=60.0,
+                                       offset=200.0)
+    step = est.make_estimator_step(cfg)
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        rig = bench_scene.make_rig(d, shape=shape, fx=100.0)
+        state = est.init_state(cfg, device=d)
+        outs[d.type] = []
+        for a, b in frames:
+            state, out = step(state, rig, a.to(d), b.to(d))
+            outs[d.type].append(out)
+    for oc, og in zip(outs["cpu"], outs["cuda"]):
+        for f in ("n_tracked", "is_keyframe", "n_ransac_inliers",
+                  "n_pnp_candidates"):
+            assert int(getattr(oc, f)) == int(getattr(og, f)), f
+        assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 1e-3
+        assert abs(float(oc.health) - float(og.health)) <= 1e-4
+    assert float(outs["cuda"][-1].T_W_B[0, 3]) > 0.05
+    assert any(int(o.n_ransac_inliers) >= 12 for o in outs["cuda"])

@@ -1,8 +1,9 @@
 """Parity of the port's solvers and table bookkeeping with the JAX package:
 ``solve_pnp`` and ``solve_ba`` on the synthetic forward-model problems of
 tests/test_pnp.py and tests/test_ba.py (ground truth -> project -> perturb ->
-optimize), the Schur step on an indefinite reduced system, and the frontend's
-``birth_slots`` / ``masked_row_scatter``.
+optimize), also with per-observation weights and the PnP motion prior's
+run-time scale, the Schur step on an indefinite reduced system, and the
+frontend's ``birth_slots`` / ``masked_row_scatter``.
 
 Each solver case runs twice.
 
@@ -15,7 +16,8 @@ Each solver case runs twice.
   float32 the last accept/reject decisions compare costs that differ by
   about the rounding of their sums, which the two sides take in another
   order, so there the path may end one or two iterations apart; float64
-  puts that noise 1e9 times further below the LM tolerances. Observations
+  puts that noise 1e9 times further below the LM tolerances. The weighted
+  and prior-scaled cases hold float64 poses within 1e-9. Observations
   carry ~1 px of noise so that the optimum's cost is far above zero.
 """
 
@@ -233,6 +235,55 @@ def test_solve_ba_options_match_jax(cfg, dtype):
                   [T_init, T_C_B, lms, obs, mask, lm_valid],
                   jba.BAConfig(**cfg), tba.BAConfig(**cfg))
     _check(rt, rj, dtype)
+
+
+def _check_f64(rt, rj):
+    assert bool(rt.success) == bool(rj.success)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert int(rt.status) == int(rj.status)
+    np.testing.assert_allclose(rt.T_W_B.numpy(), rj.T_W_B, atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("prior_scale", [None, 0.3])
+def test_solve_pnp_weights_and_prior_scale_match_jax(dtype, prior_scale):
+    T_init, T_C_B, p_W, obs, mask, T_gt = pnp_problem()
+    obs = _noisy(obs, mask, 5)
+    obs[0, :3] += 0.05                              # a few gross outliers
+    w = np.random.default_rng(6).uniform(0.05, 1.0, p_W.shape[0])
+    kw = dict(obs_weight=w.astype(np.float32))
+    if prior_scale is not None:
+        kw.update(T_W_B_prior=T_gt.astype(np.float32),
+                  prior_scale=np.asarray(prior_scale, np.float32))
+    cfg_j = jpnp.PnPConfig(motion_prior_weight=20.0, chi2_gate=0.05)
+    cfg_t = tpnp.PnPConfig(motion_prior_weight=20.0, chi2_gate=0.05)
+    rt, rj = _run(dtype, jpnp.solve_pnp, tpnp.solve_pnp,
+                  [T_init, T_C_B, p_W, obs, mask], cfg_j, cfg_t, **kw)
+    if dtype == "f64":
+        _check_f64(rt, rj)
+    else:
+        assert bool(rt.success) == bool(rj.success)
+        np.testing.assert_allclose(rt.T_W_B.numpy(), rj.T_W_B, atol=1e-4)
+    assert bool(rt.success)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_solve_ba_weights_match_jax(dtype):
+    T_init, T_C_B, lms, obs, mask, lm_valid, _, _ = ba_problem()
+    obs = _noisy(obs, mask, 7)
+    w = np.random.default_rng(8).uniform(0.05, 1.0, mask.shape[::2])
+    cfg_j, cfg_t = jba.BAConfig(chi2_gate=0.05), tba.BAConfig(chi2_gate=0.05)
+    rt, rj = _run(dtype, jba.solve_ba, tba.solve_ba,
+                  [T_init, T_C_B, lms, obs, mask, lm_valid], cfg_j, cfg_t,
+                  obs_weight=w.astype(np.float32))
+    if dtype == "f64":
+        _check_f64(rt, rj)
+        np.testing.assert_allclose(rt.landmarks.numpy(), rj.landmarks,
+                                   atol=1e-9, rtol=0)
+    else:
+        assert bool(rt.success) == bool(rj.success)
+        np.testing.assert_allclose(rt.T_W_B.numpy(), rj.T_W_B, atol=1e-4)
+    assert bool(rt.success)
 
 
 def test_schur_indefinite_system_rejects_step_without_raising():
