@@ -66,6 +66,30 @@ them. Phases, each of which raises on failure:
                frame, and for the adaptive config the RANSAC gate engaged
                and won on at least half of the frames after the window
                fills.
+  9. options — the window options on the bench scene at full width, each
+               run 6 warm-up, 30 timed, 20 blocked and 10 split frames:
+               "marg" (the default config with use_marginalization, as
+               --marginalization gives), "euroc_vo_dynamic+marg+cv" (that
+               file with its commented marginalization and pnp_cv_predict
+               keys switched on), "euroc_vo_adaptive+flow" (that file with
+               dynamic_flow 0.02) and "window_opts" (the default config with
+               refine_births, cull_reproj_threshold 0.02 and
+               track_before_full=False). Each is held to the floors of main
+               (a file with a fixed prior to those of configs; the cv run's
+               drift is printed but not held: on this clean planar scene the
+               constant-velocity seed closes the feedback loop the JAX
+               package documents for it, rsvio_tpu/models/estimator.py:76-86,
+               and the JAX step diverges alike on the same frames,
+               tools/compare_vo_trajectories.py), to exactly 2
+               K1 launches per frame, and to evidence that its options took
+               effect (the step's probe counts: priors made and a valid
+               prior at the end; constant-velocity seeds taken; tracks
+               carrying a scene flow; landmarks refined and held to the cull
+               threshold). Two CUDA-vs-CPU checks on fixed inputs:
+               marginalize_oldest on the window system the marg run
+               recorded (its last prior), H and g within 1e-4 of max|H|,
+               and scene_flow_gate on tests/test_estimator.py's mover case
+               (8 of 32 tracks displaced 0.03 a keyframe), equal kill sets.
 
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. Drift is against the scene's truth, bench_scene.truth_position
@@ -85,6 +109,7 @@ import time
 WARMUP, TIMED, QUAL, SPLIT = 6, 60, 20, 10
 ROT_TIMED = 30
 CFG_TIMED = 30
+OPT_TIMED = 30
 CONFIGS = ("euroc_vio.yaml", "euroc_vo_dynamic.yaml", "euroc_vo_adaptive.yaml",
            "4seasons.yaml", "tum_vi.yaml")
 KF_TRANSLATION_M = 0.05   # the bench's keyframe translation threshold
@@ -453,19 +478,20 @@ def track_points_phase(frames, rolled, dev):
     return sum(level_launches)
 
 
-def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
+def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
     """Warm-up, timed and blocked quality frames of one estimator config;
     returns (summary dict, launch counts of the whole run, per-frame
     records of the warm-up, timed and quality frames: n_tracked,
-    n_ransac_inliers, n_pnp_candidates, health and the window's fill
-    before the frame, as numpy arrays)."""
+    n_ransac_inliers, n_pnp_candidates, health, the window's fill before
+    the frame and n_dyn_killed, as numpy arrays). `probe`: a dict the step
+    adds its option counts to (make_estimator_step)."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.models import estimator as est
 
-    step = est.make_estimator_step(cfg)
-    split = est.make_estimator_split_step(cfg)
+    step = est.make_estimator_step(cfg, probe=probe)
+    split = est.make_estimator_split_step(cfg, probe=probe)
     state = est.init_state(cfg, device=dev)
     rec = []     # device tensors, read after the run: no sync per frame
 
@@ -473,7 +499,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
         rec.append(torch.stack([
             out.n_tracked.double(), out.n_ransac_inliers.double(),
             out.n_pnp_candidates.double(), out.health.double(),
-            kf_before.double()]))
+            kf_before.double(), out.n_dyn_killed.double()]))
 
     reset_counts()
     k = 0
@@ -519,7 +545,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
     t_final, t_truth, drift = drift_at(k - 1, out.T_W_B)
     per_frame = dict(zip(
         ("n_tracked", "n_ransac_inliers", "n_pnp_candidates", "health",
-         "kf_before"), torch.stack(rec).cpu().numpy().T))
+         "kf_before", "n_dyn_killed"), torch.stack(rec).cpu().numpy().T))
 
     stage_ms = {name: [] for name in est.STAGE_NAMES}
     for _ in range(split_frames):
@@ -534,7 +560,8 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
         "t_final": t_final.tolist(), "t_truth": t_truth.tolist(),
         "drift_rel": drift, "drift_rel_last_kf": drift_kf,
         "ba_fires_in_quality_pass": ba_seen,
-        "pose_ok": pose_ok_all, "frames": k, "launches": c}
+        "pose_ok": pose_ok_all, "frames": k, "launches": c,
+        "marg_prior_valid": bool(state.marg_prior.valid)}
     if split_frames:
         summary["stage_median_ms"] = {n: statistics.median(v)
                                       for n, v in stage_ms.items()}
@@ -542,6 +569,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0):
 
 
 def check_floors(tag, s, drift_key="drift_rel"):
+    """The main path's floors; drift_key None holds no drift."""
     check(s["tracked_mean"] >= 80.0, f"{tag}: tracked_mean < 80")
     check(s["bidir_kill_rate"] <= 0.3,
           f"{tag}: kill rate {s['bidir_kill_rate']} > 0.3")
@@ -550,7 +578,9 @@ def check_floors(tag, s, drift_key="drift_rel"):
     check(s["pose_ok"], f"{tag}: pose recovery fired in the quality pass")
     check(s["ba_fires_in_quality_pass"] >= 1,
           f"{tag}: BA never fired in the quality pass")
-    check(s[drift_key] <= 0.02, f"{tag}: {drift_key} {s[drift_key]} > 0.02")
+    if drift_key is not None:
+        check(s[drift_key] <= 0.02,
+              f"{tag}: {drift_key} {s[drift_key]} > 0.02")
 
 
 def main_phase(frames, dev):
@@ -641,45 +671,60 @@ def mono_phase(tex, dev):
     return c["klt_bidir"]
 
 
-def configs_phase(tex, dev):
-    """The shipped stereo VO configs end to end; returns the K1 launches of
-    all of them."""
-    import numpy as np
+def shipped_config(name, tex, dev, **solver):
+    """A shipped config file through load_config (with the `solver`
+    section's keys set as given) -> make_estimator_config, and the bench
+    plane rendered through its rig for a run of the configs phase's length.
+    Returns (EstimatorConfig, rig, frames, override or None)."""
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.utils import config as config_mod
 
     root = os.path.dirname(os.path.abspath(__file__))
+    cfg = config_mod.load_config(os.path.join(root, "config", name))
+    for k, v in solver.items():
+        check(hasattr(cfg.solver, k), f"{name}: no solver key {k}")
+        setattr(cfg.solver, k, v)
+    km = cfg.keyframe_management
+    override = None
+    if km.translation_threshold > KF_TRANSLATION_M:
+        override = (f"keyframe_management.translation_threshold "
+                    f"{km.translation_threshold} -> {KF_TRANSLATION_M}")
+        km.translation_threshold = KF_TRANSLATION_M
+    ecfg, rig = config_mod.make_estimator_config(cfg, kind="vo", device=dev)
+    kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
+    frames = [bench_scene.render_rig(tex, rig, kinds, k, ecfg.image_shape)
+              for k in range(WARMUP + CFG_TIMED + QUAL + SPLIT)]
+    return ecfg, rig, frames, override
+
+
+def drift_key_of(ecfg):
+    """A fixed PnP motion prior (pnp_motion_prior > 0 without
+    pnp_prior_adaptive: euroc_vo_dynamic.yaml) holds each frame's pose near
+    the previous one, so on this clean, moving scene the poses between
+    keyframes lag the truth by design (the file's own TRADEOFF note; the JAX
+    package lags alike, tests/test_torch_config.py::
+    test_dynamic_profile_lags_in_jax_and_in_the_port) until a keyframe's
+    BA, which has no prior, catches up. Such a config is held to 2 % at the
+    last keyframe of the quality pass instead of at its last frame."""
+    fixed_prior = (ecfg.pnp.motion_prior_weight > 0.0
+                   and not ecfg.pnp_prior_adaptive)
+    return "drift_rel_last_kf" if fixed_prior else "drift_rel"
+
+
+def configs_phase(tex, dev):
+    """The shipped stereo VO configs end to end; returns the K1 launches of
+    all of them."""
+    import numpy as np
+
     total = 0
     for name in CONFIGS:
         t0 = time.perf_counter()
-        cfg = config_mod.load_config(os.path.join(root, "config", name))
-        km = cfg.keyframe_management
-        override = None
-        if km.translation_threshold > KF_TRANSLATION_M:
-            override = (f"keyframe_management.translation_threshold "
-                        f"{km.translation_threshold} -> {KF_TRANSLATION_M}")
-            km.translation_threshold = KF_TRANSLATION_M
-        ecfg, rig = config_mod.make_estimator_config(cfg, kind="vo",
-                                                     device=dev)
+        ecfg, rig, frames, override = shipped_config(name, tex, dev)
         kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
-        frames = [bench_scene.render_rig(tex, rig, kinds, k,
-                                         ecfg.image_shape)
-                  for k in range(WARMUP + CFG_TIMED + QUAL + SPLIT)]
         s, c, pf = run_vo(ecfg, frames, rig, dev, CFG_TIMED,
                           split_frames=SPLIT)
         fe = ecfg.frontend
-        # A fixed PnP motion prior (pnp_motion_prior > 0 without
-        # pnp_prior_adaptive: euroc_vo_dynamic.yaml) holds each frame's
-        # pose near the previous one, so on this clean, moving scene the
-        # poses between keyframes lag the truth by design (the file's own
-        # TRADEOFF note; the JAX package lags alike, tests/
-        # test_torch_config.py::test_dynamic_profile_lags_in_jax_and_in_
-        # the_port) until a keyframe's BA, which has no prior, catches up.
-        # Such a config is held to 2 % at the last keyframe of the quality
-        # pass instead of at its last frame.
-        fixed_prior = (ecfg.pnp.motion_prior_weight > 0.0
-                       and not ecfg.pnp_prior_adaptive)
-        drift_key = "drift_rel_last_kf" if fixed_prior else "drift_rel"
+        drift_key = drift_key_of(ecfg)
         line = {k: s[k] for k in (
             "frames_per_s", "blocked_median_ms", "tracked_mean",
             "bidir_kill_rate", "drift_rel", "drift_rel_last_kf")}
@@ -712,6 +757,155 @@ def configs_phase(tex, dev):
                   f"after the window filled")
         total += c["klt_bidir"]
     return total
+
+
+def options_phase(tex, frames, dev):
+    """The window options end to end (see the module docstring, phase 9)
+    and the two CUDA-vs-CPU checks; returns the K1 launches of the runs."""
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+
+    base = est.EstimatorConfig()
+    runs = {
+        "marg": lambda: (base._replace(use_marginalization=True),
+                         bench_scene.make_rig(dev), frames, None),
+        "euroc_vo_dynamic+marg+cv": lambda: shipped_config(
+            "euroc_vo_dynamic.yaml", tex, dev, marginalization=True,
+            pnp_cv_predict=True),
+        "euroc_vo_adaptive+flow": lambda: shipped_config(
+            "euroc_vo_adaptive.yaml", tex, dev, dynamic_flow=0.02),
+        "window_opts": lambda: (base._replace(
+            refine_births=True, cull_reproj_threshold=0.02,
+            track_before_full=False), bench_scene.make_rig(dev), frames,
+            None),
+    }
+    total = 0
+    for name, make in runs.items():
+        t0 = time.perf_counter()
+        ecfg, rig, run_frames, override = make()
+        probe = {}
+        s, c, pf = run_vo(ecfg, run_frames, rig, dev, OPT_TIMED,
+                          split_frames=SPLIT, probe=probe)
+        probe = {k: int(v) for k, v in probe.items()}
+        # The constant-velocity seed's feedback loop (module docstring,
+        # phase 9): the reference diverges alike, so drift is not held.
+        drift_key = None if ecfg.pnp_cv_predict else drift_key_of(ecfg)
+        line = {k: s[k] for k in (
+            "frames_per_s", "blocked_median_ms", "tracked_mean",
+            "bidir_kill_rate", "drift_rel", "drift_rel_last_kf",
+            "marg_prior_valid")}
+        line.update(
+            ba_fires=s["ba_fires_in_quality_pass"], pose_ok=s["pose_ok"],
+            launches=c, frames=s["frames"],
+            image_shape=list(ecfg.image_shape), override=override,
+            drift_checked=drift_key, probe=probe,
+            n_dyn_killed=int(pf["n_dyn_killed"].sum()),
+            stage_median_ms=s["stage_median_ms"],
+            seconds=time.perf_counter() - t0)
+        print(f"options[{name}]: " + json.dumps(line), flush=True)
+        check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
+                    "klt_level": 0},
+              f"options[{name}]: launches {c} for {s['frames']} frames")
+        check_floors(f"options[{name}]", s, drift_key)
+        if ecfg.use_marginalization:
+            check(probe["priors_made"] >= 2 and s["marg_prior_valid"],
+                  f"options[{name}]: no marginalization prior in use")
+        if ecfg.pnp_cv_predict:
+            check(probe["cv_seeded"] > 0,
+                  f"options[{name}]: no constant-velocity seed taken")
+        if ecfg.dynamic_flow_thresh > 0:
+            check(probe["flow_tracked"] > 0,
+                  f"options[{name}]: the scene-flow gate tracked no flow")
+        if ecfg.refine_births:
+            check(probe["refined"] > 0 and probe["cull_checked"] > 0,
+                  f"options[{name}]: no birth refined or cull check made")
+        total += c["klt_bidir"]
+    marg_agreement(dev)
+    flow_agreement(dev)
+    return total
+
+
+def marg_agreement(dev):
+    """marginalize_oldest on CUDA vs CPU on a recorded window system: the
+    prior the default config with marginalization holds after 24 frames of
+    the bench scene (its H, g and linearization point), marginalized once
+    more. H and g within 1e-4 of max|H|."""
+    import torch
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+    from rsvio_tpu_torch.models import marginalization as marg
+
+    cfg = est.EstimatorConfig(use_marginalization=True)
+    tex = bench_scene.make_texture(0).to(dev)
+    step = est.make_estimator_step(cfg)
+    rig = bench_scene.make_rig(dev)
+    state = est.init_state(cfg, device=dev)
+    for a, b in bench_scene.stereo_frames(tex, 24):
+        state, _ = step(state, rig, a, b)
+    p = state.marg_prior
+    check(bool(p.valid), "marg agreement: no prior after 24 frames")
+    W = cfg.window_size
+    args = (p.H, p.g, p.T0, p.x0_extra)
+    cpu, gpu = (marg.marginalize_oldest(
+        *(x.to(d) for x in args), marg.empty_prior(W, 6, device=d), 6)
+        for d in (torch.device("cpu"), dev))
+    scale = float(cpu.H.abs().max())
+    err = max(float((gpu.H.cpu() - cpu.H).abs().max()),
+              float((gpu.g.cpu() - cpu.g).abs().max()))
+    print(f"options: marginalize_oldest CUDA vs CPU on the recorded window "
+          f"system: max|dH|,|dg| = {err:.3g} (max|H| {scale:.4g})",
+          flush=True)
+    check(err <= 1e-4 * max(scale, 1.0) and bool(gpu.valid),
+          f"marginalize_oldest disagrees: {err} vs max|H| {scale}")
+
+
+def flow_agreement(dev):
+    """scene_flow_gate on CUDA vs CPU on tests/test_estimator.py's mover
+    case (32 points 2-6 m ahead, 8 displaced 0.03 z along x a keyframe, 4
+    keyframes): identical kill sets, the 8 movers killed and no other."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+
+    n = 32
+    rng = np.random.default_rng(3)
+    pts = np.stack([rng.uniform(-1, 1, n), rng.uniform(-0.6, 0.6, n),
+                    rng.uniform(2.0, 6.0, n)], axis=1).astype(np.float32)
+    mover = np.arange(n) < 8
+    cfg = est.EstimatorConfig(dynamic_flow_thresh=0.02,
+                              dynamic_flow_decay=0.7, dynamic_flow_min_n=2)
+    killed = []
+    for d in (torch.device("cpu"), dev):
+        rig = bench_scene.make_rig(d, shape=(120, 160), fx=120.0)
+        table = est.init_table(n, device=d)._replace(
+            alive=torch.ones(n, dtype=torch.bool, device=d),
+            fid=torch.arange(n, dtype=torch.int32, device=d))
+        mem = (torch.from_numpy(pts).to(d), table.fid,
+               torch.zeros((n, 2), device=d),
+               torch.zeros(n, dtype=torch.int32, device=d))
+        pts_k = pts.copy()
+        kills = []
+        for _ in range(4):
+            pts_k[mover, 0] += 0.03 * pts_k[mover, 2]
+            obs = np.stack([pts_k[:, :2] / pts_k[:, 2:3],
+                            (pts_k[:, :2] - np.array([0.11, 0.0], np.float32))
+                            / pts_k[:, 2:3]]).astype(np.float32)
+            kill, mem, _ = est.scene_flow_gate(
+                cfg, rig, torch.eye(4, device=d), torch.from_numpy(obs).to(d),
+                torch.ones((2, n), dtype=torch.bool, device=d), table,
+                torch.from_numpy(pts_k).to(d),
+                torch.ones(n, dtype=torch.bool, device=d), *mem)
+            kills.append(kill.cpu())
+        killed.append(torch.stack(kills))
+    same = torch.equal(killed[0], killed[1])
+    any_kill = killed[1].any(dim=0).numpy()
+    print(f"options: scene_flow_gate CUDA vs CPU on the mover case: kill "
+          f"sets equal {same}, killed {int(any_kill.sum())} "
+          f"(movers {int(mover.sum())})", flush=True)
+    check(same, "scene_flow_gate kill sets differ between CUDA and CPU")
+    check(bool((any_kill == mover).all()),
+          "scene_flow_gate did not kill exactly the movers")
 
 
 def kernel_entry(name, launches, rows, extra=None):
@@ -783,6 +977,7 @@ def main():
     rot_launches = phase("rotation", rotation_phase, frames, dev)
     mono_launches = phase("mono", mono_phase, tex, dev)
     config_launches = phase("configs", configs_phase, tex, dev)
+    option_launches = phase("options", options_phase, tex, frames, dev)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
@@ -793,7 +988,8 @@ def main():
                          for k in ("ms", "device_ms", "plain_ms",
                                    "bound_ms", "max_chain", "ns_per_link")},
                       "launches_mono": mono_launches,
-                      "launches_configs": config_launches}),
+                      "launches_configs": config_launches,
+                      "launches_options": option_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],

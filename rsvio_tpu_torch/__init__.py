@@ -12,7 +12,10 @@ Ported so far: the stereo VO main path (``ops.lie``, ``ops.cameras``,
 ``utils.precision``, ``utils.convert``, ``data.bench_scene``) and the
 tracker family (SE2 rotation tracking, ``ops.klt.track_points``, the gather
 KLT route with ``ops.interp`` bilinear / bicubic sampling, the ratio
-pyramid, Shi-Tomasi and NMS detection, ``models.mono_tracker``). Both TPU
+pyramid, Shi-Tomasi and NMS detection, ``models.mono_tracker``), the
+shipped VO configs (``utils.config``) and every VO estimator option,
+window marginalization (``models.marginalization``,
+``models.ba.solve_ba_marginalized``) among them. Both TPU
 kernels of the JAX package have hand-written Hopper counterparts in
 ``ops.cuda.klt_kernel`` (source in ``csrc/``): the fused bidirectional KLT
 ``klt_bidir`` (translation and rotation) and the per-level ``klt_level``.

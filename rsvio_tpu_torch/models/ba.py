@@ -6,8 +6,8 @@ masked observation tensor obs (W, 2, L, 2) + mask (W, 2, L), one batched
 linearization, einsum normal-equation blocks, closed-form 3x3 landmark
 inverses, a Cholesky solve of the reduced camera system with pose 0
 gauge-fixed, LM accept/reject with rollback, and per-observation weights
-(``apply_obs_weights``). ``solve_ba_marginalized`` is not ported yet
-(ROADMAP A13).
+(``apply_obs_weights``), and ``solve_ba_marginalized``: the same solve
+with a marginalization prior over the poses, producing the next prior.
 
 Two deliberate differences of form, same results:
   * The JAX ``lax.while_loop`` with early exit becomes a fixed-trip loop of
@@ -27,6 +27,7 @@ import torch
 
 from ..ops import lie
 from ..ops.projection import linearize_projection
+from .marginalization import MargPrior, marginalize_oldest, prior_terms
 
 STATUS_MAX_ITERATIONS = 0
 STATUS_COST_TOL = 1
@@ -157,10 +158,12 @@ def _clamped_diag(H):
 
 
 def cholesky_solve_or_nan(S, b):
-    """Solve S x = b by Cholesky; NaNs (not an exception) when S is not
-    positive definite, as the JAX reference's cho_factor gives."""
+    """Solve S x = b (b a vector or a matrix) by Cholesky; NaNs (not an
+    exception, no host sync) when S is not positive definite, as the JAX
+    reference's cho_factor gives."""
     Lc, info = torch.linalg.cholesky_ex(S)
-    x = torch.cholesky_solve(b[:, None], Lc)[:, 0]
+    x = torch.cholesky_solve(b[:, None] if b.dim() == 1 else b, Lc)
+    x = x[:, 0] if b.dim() == 1 else x
     return torch.where(info == 0, x, torch.full_like(x, torch.nan))
 
 
@@ -333,3 +336,186 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     return BAResult(T_W_B=T_W_B_out, landmarks=lms_out, success=success,
                     status=status, initial_cost=cost0, final_cost=cost,
                     iterations=it, metrics=metrics)
+
+
+def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
+                          prior: MargPrior, will_evict,
+                          cfg: BAConfig = BAConfig(), obs_weight=None):
+    """``solve_ba`` with a pose prior, and the next prior.
+
+    prior: MargPrior over the W poses (6-dim blocks in the T_B_W
+    split-retraction tangent); while it is not valid, pose 0 is gauge-fixed
+    instead (a device select, as JAX's ``lax.cond`` on ``~prior.valid``).
+    will_evict: () bool. Where it is set and the solve succeeds, the
+    returned prior marginalizes pose 0 of the system linearized once more
+    at the result (damped with lambda 1e-5) and is rolled one slot for the
+    caller's window roll; otherwise the input prior comes back unchanged.
+    Same fixed-trip LM as ``solve_ba``, with the prior's terms in every
+    system and its cost in every cost. Returns (BAResult, new prior).
+    """
+    dtype, dev = T_W_B.dtype, T_W_B.device
+    W = T_W_B.shape[0]
+    lm_active0 = lm_span_gate(stereo_observability_mask(obs_mask, lm_valid),
+                              obs_mask, cfg.min_lm_span)
+    mask0 = obs_mask & lm_active0[None, None, :]
+    n_blocks = mask0.sum()
+    n_vars = (W - 1) * 6 + 3 * lm_active0.sum()
+    attempt = (n_blocks >= cfg.min_residual_blocks) & (n_blocks * 2 >= n_vars)
+    fix_first = ~prior.valid
+    no_extra = torch.zeros((W, 0), dtype=dtype, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    ar = torch.arange(W, device=dev)
+    gauge = torch.cat([torch.zeros(6, dtype=dtype, device=dev),
+                       torch.ones((W - 1) * 6, dtype=dtype, device=dev)])
+
+    def lin_sys(T_B_W, lms, mask, lm_active):
+        """Masked normal-equation blocks plus the prior's terms, the total
+        (visual + prior) cost, and the per-observation squared whitened
+        residuals for the chi2 gate."""
+        lin = _linearize_all(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)
+        if obs_weight is not None:
+            lin = apply_obs_weights(lin, obs_weight)
+        H_pp, H_ll, H_pl, g_p, g_l = build_normal_equations(lin)
+        H_add, g_add, pcost = prior_terms(prior, lie.se3_inverse(T_B_W),
+                                          no_extra)
+        g_l_m = torch.where(lm_active[:, None], g_l, zero)
+        H_pl_m = torch.where(lm_active[None, :, None, None], H_pl, zero)
+        sys = (H_pp, H_ll, H_pl_m, g_p, g_l_m, H_add, g_add)
+        return sys, lin.cost.sum() + pcost, (lin.r ** 2).sum(-1)
+
+    def damp_reduce(sys, lam, lm_active):
+        """The damped, prior-augmented reduced camera system S, b = -grad,
+        and the landmark blocks' inverses."""
+        H_pp, H_ll, H_pl_m, g_p, g_l_m, H_add, g_add = sys
+        H_pp_d = H_pp + lam * torch.diag_embed(_clamped_diag(H_pp))
+        H_ll_d = H_ll + lam * torch.diag_embed(_clamped_diag(H_ll))
+        H_ll_d = torch.where(lm_active[:, None, None], H_ll_d, eye3)
+        H_ll_inv, inv_ok = _inv3x3(H_ll_d)
+        A = torch.einsum("wlij,ljk->wlik", H_pl_m, H_ll_inv)
+        S_blocks = -torch.einsum("wlik,vljk->wvij", A, H_pl_m)
+        S_blocks[ar, ar] += H_pp_d
+        S = S_blocks.permute(0, 2, 1, 3).reshape(W * 6, W * 6) + H_add
+        b = (-(g_p - torch.einsum("wlik,lk->wi", A, g_l_m))).reshape(W * 6) \
+            - g_add
+        return S, b, H_ll_inv, inv_ok
+
+    def solve_from_system(S, b):
+        S = torch.where(fix_first, S * gauge[:, None] * gauge[None, :]
+                        + torch.diag(1.0 - gauge), S)
+        b = torch.where(fix_first, b * gauge, b)
+        return cholesky_solve_or_nan(S, b).reshape(W, 6)
+
+    T_B_W0 = lie.se3_inverse(T_W_B)
+    sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0, lm_active0)
+
+    T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
+    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
+    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    done = ~attempt
+    status = torch.tensor(STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                          device=dev)
+    metrics = torch.zeros((cfg.max_iterations, N_METRIC_COLS), dtype=dtype,
+                          device=dev)
+    mask, lm_active = mask0, lm_active0
+    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+
+    # Fixed trip count; an iteration after `done` leaves the carry as it was.
+    for _ in range(cfg.max_iterations):
+        live = ~done
+        H_pp, H_ll, H_pl_m, g_p, g_l_m, H_add, g_add = sys
+        S, b, H_ll_inv, inv_ok = damp_reduce(sys, lam, lm_active)
+        delta_p = solve_from_system(S, b)
+        rhs_l = -g_l_m - torch.einsum("wlij,wi->lj", H_pl_m, delta_p)
+        delta_l = torch.einsum("lij,lj->li", H_ll_inv, rhs_l)
+        delta_l = torch.where(lm_active[:, None], delta_l, zero)
+        ok_step = (torch.isfinite(delta_p).all()
+                   & torch.isfinite(delta_l).all()
+                   & (inv_ok | ~lm_active).all())
+        delta_p = torch.where(ok_step, delta_p, zero)
+        delta_l = torch.where(ok_step, delta_l, zero)
+        T_new = lie.se3_retract_split(T_B_W, delta_p)
+        lms_new = lms + delta_l
+        sys_new, new_cost, r_sq_new = lin_sys(T_new, lms_new, mask,
+                                              lm_active)
+        accept = ok_step & torch.isfinite(new_cost) & (new_cost < cost)
+
+        mask_n, lm_active_n = mask, lm_active
+        if cfg.chi2_gate > 0.0:
+            # The outlier gate of solve_ba (both branches computed, one
+            # selected); the final prior is built from the gated system.
+            do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
+            m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
+            act = stereo_observability_mask(m, lm_valid)
+            m = m & act[None, None, :]
+            n_b = m.sum()
+            guard = ((n_b >= cfg.min_residual_blocks)
+                     & (2 * n_b >= (W - 1) * 6 + 3 * act.sum()))
+            m = torch.where(guard, m, mask)
+            act = torch.where(guard, act, lm_active)
+            sys_g, cost_g, _ = lin_sys(T_new, lms_new, m, act)
+            mask_n = torch.where(do_gate, m, mask)
+            lm_active_n = torch.where(do_gate, act, lm_active)
+            sys_new = _sel(do_gate, sys_g, sys_new)
+            new_cost = torch.where(do_gate, cost_g, new_cost)
+        n_acc_n = n_acc + accept.to(torch.int32)
+
+        cost_conv = accept & (torch.abs(cost - new_cost)
+                              <= cfg.cost_tol * torch.clamp(cost, min=1e-12))
+        step_norm = torch.sqrt((delta_p ** 2).sum() + (delta_l ** 2).sum())
+        param_conv = accept & (step_norm <= cfg.param_tol)
+        # Observer columns: the prior-augmented gradient and gain ratio.
+        g_full = g_p.reshape(-1) + g_add
+        g_norm = torch.sqrt((g_full ** 2).sum() + (g_l_m ** 2).sum())
+        d_p = _clamped_diag(H_pp)
+        d_l = _clamped_diag(H_ll)
+        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum()
+                             + (d_l * delta_l ** 2).sum())
+                      - ((g_full * delta_p.reshape(-1)).sum()
+                         + (g_l_m * delta_l).sum()))
+        rho = step_quality(cost, new_cost, pred)
+        row = metrics_row(new_cost, g_norm, lam, step_norm, rho, accept)
+        metrics = torch.where(
+            live & (torch.arange(cfg.max_iterations, device=dev) == it)[:, None],
+            row[None, :], metrics)
+        lam_n = torch.where(accept, torch.clamp(lam * 0.33, min=1e-12),
+                            lam * 4.0)
+        hard_fail = lam_n > cfg.lambda_max
+
+        acc_live = accept & live
+        T_B_W = torch.where(acc_live, T_new, T_B_W)
+        lms = torch.where(acc_live, lms_new, lms)
+        sys = _sel(acc_live, sys_new, sys)
+        cost = torch.where(acc_live, new_cost, cost)
+        lam = torch.where(live, lam_n, lam)
+        mask = torch.where(live, mask_n, mask)
+        lm_active = torch.where(live, lm_active_n, lm_active)
+        n_acc = torch.where(live, n_acc_n, n_acc)
+        status = torch.where(live, lm_status(cost_conv, param_conv, hard_fail),
+                             status)
+        it = it + live.to(torch.int32)
+        done = done | (live & (cost_conv | param_conv | hard_fail))
+
+    status = torch.where(attempt, status, torch.full_like(status,
+                                                          STATUS_SKIPPED))
+    finite = (torch.isfinite(T_B_W).all()
+              & torch.isfinite(torch.where(lm_active[:, None], lms,
+                                           zero)).all())
+    success = attempt & (status != STATUS_FAILED) & finite
+    T_W_B_out = torch.where(success, lie.se3_inverse(T_B_W), T_W_B)
+    lms_out = torch.where(success, lms, landmarks)
+
+    # The next prior: marginalize pose 0 of the system linearized at the
+    # result (from the chi2-gated observation set when the gate is on).
+    sys_f, _, _ = lin_sys(lie.se3_inverse(T_W_B_out), lms_out, mask,
+                          lm_active)
+    S_f, b_f, _, _ = damp_reduce(sys_f, 1e-5, lm_active)
+    # b is -(gradient); marginalize_oldest takes the gradient.
+    new_prior = marginalize_oldest(S_f, -b_f, T_W_B_out, no_extra, prior, 6)
+    do_new = will_evict & success
+    out_prior = MargPrior(*(torch.where(do_new, n, o)
+                            for n, o in zip(new_prior, prior)))
+    result = BAResult(T_W_B=T_W_B_out, landmarks=lms_out, success=success,
+                      status=status, initial_cost=cost0, final_cost=cost,
+                      iterations=it, metrics=metrics)
+    return result, out_prior

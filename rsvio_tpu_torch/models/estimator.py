@@ -9,19 +9,25 @@ the shipped VO configs switch on: score-weighted observations
 (``use_obs_weights``, ``obs_weight_age_ramp``), the frontend's starvation
 floor, EUCM cameras, and the RANSAC consensus gate with its outlier kill
 and the adaptive track health (``pnp_prior_adaptive``,
-``vision_weight_adaptive``, ``health_recover``).
+``vision_weight_adaptive``, ``health_recover``), and the remaining window
+options: marginalization of evicted keyframes into a pose prior
+(``use_marginalization``), post-BA landmark culling
+(``cull_reproj_threshold``), N-view refinement of fresh births
+(``refine_births``), the guarded constant-velocity PnP seed
+(``pnp_cv_predict``), the stereo scene-flow dynamic-object gate
+(``dynamic_flow_thresh``) and tracking only once the window is full
+(``track_before_full=False``).
 
 Control flow. The JAX step is one jitted function whose data-dependent
 branches are ``lax.cond``s: ``pnp_ready`` in run_motion, ``is_kf`` and
 ``full_now`` in stage_opt. Here they are host branches on ``bool(tensor)``,
 one device sync per branch per frame, as rsvio_tpu/parallel/dist_estimator.py
 already does in JAX. The RANSAC gate runs inside the ``pnp_ready`` branch
-and reads the frame id (which seeds its draws) in the same sync. Making the
-step capturable in a CUDA graph (so these syncs go) is later work (ROADMAP
-A10).
-
-Options not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item (``check_config``); none is silently ignored.
+and reads the frame id (which seeds its draws) in the same sync. Every
+other data-dependent choice (the marginalized solve's gauge fix and prior
+update, the CV seed and its bound, culling, refinement, the flow gate) is
+a device select, so the options add no sync. Making the step capturable in
+a CUDA graph (so these syncs go) is later work (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import cameras, lie, pyramid
+from ..ops import cameras, lie, projection, pyramid
 from ..ops.projection import triangulate_stereo
 from ..utils.precision import pin_fp32
 from . import ba as ba_mod
@@ -93,22 +99,7 @@ def validate_adaptive_knobs(cfg: EstimatorConfig) -> None:
 
 
 def check_config(cfg: EstimatorConfig) -> None:
-    """Raise NotImplementedError for every option the port does not
-    implement yet, naming its ROADMAP item, and ValueError for incoherent
-    or unknown values."""
-    todo = [
-        (cfg.use_marginalization, "use_marginalization", "A13"),
-        (cfg.dynamic_flow_thresh > 0, "dynamic_flow_thresh > 0", "A13"),
-        (cfg.refine_births, "refine_births", "A13"),
-        (cfg.cull_reproj_threshold > 0, "cull_reproj_threshold > 0", "A13"),
-        (cfg.pnp_cv_predict, "pnp_cv_predict", "A13"),
-        (not cfg.track_before_full, "track_before_full=False", "A13"),
-    ]
-    for on, name, item in todo:
-        if on:
-            raise NotImplementedError(
-                f"EstimatorConfig option {name} is not ported yet "
-                f"(ROADMAP {item})")
+    """Raise ValueError for incoherent or unknown values."""
     validate_adaptive_knobs(cfg)
     for kind in (cfg.cam_kind_l, cfg.cam_kind_r):
         if kind.lower() not in (cameras.PINHOLE_RADTAN, cameras.EUCM):
@@ -133,10 +124,10 @@ def make_rig(params_l, params_r, T_B_Cl, T_B_Cr) -> CameraRig:
 
 class EstimatorState(NamedTuple):
     """Same fields as the JAX EstimatorState. Of the optional fields at the
-    end, lm_birth (the frozen birth-time map the RANSAC gate verifies
-    against) and health_ema (the smoothed track health) are allocated when
-    the gate is on; the scene-flow gate's memories (not ported) stay
-    None."""
+    end, the scene-flow gate's memories (tri_prev, tri_prev_fid, flow_acc,
+    flow_n) are allocated when dynamic_flow_thresh > 0, and lm_birth (the
+    frozen birth-time map the RANSAC gate verifies against) and health_ema
+    (the smoothed track health) when the gate is on."""
     table: FeatureTable
     pyr0: tuple              # previous-frame pyramids (tuples of levels)
     pyr1: tuple
@@ -185,6 +176,11 @@ def init_state(cfg: EstimatorConfig, dtype=torch.float32,
         T_W_B=eye.clone(), last_kf_T_W_B=eye.clone(),
         frame_id=torch.tensor(0, **i32),
         T_W_B_prev=eye.clone(),
+        **(dict(tri_prev=torch.zeros((N, 3), dtype=dtype, device=device),
+                tri_prev_fid=torch.full((N,), -1, **i32),
+                flow_acc=torch.zeros((N, 2), dtype=dtype, device=device),
+                flow_n=torch.zeros((N,), **i32))
+           if cfg.dynamic_flow_thresh > 0 else {}),
         **(dict(lm_birth=torch.zeros((N, 3), dtype=dtype, device=device),
                 health_ema=torch.tensor(1.0, dtype=dtype, device=device))
            if cfg.pnp.ransac_hypotheses > 0 else {}),
@@ -254,9 +250,10 @@ def _undistort_table(cfg: EstimatorConfig, rig: CameraRig,
 def _triangulate_new(rig: CameraRig, T_W_B, obs_cur, table: FeatureTable,
                      lm, lm_fid):
     """Triangulate landmarks for alive slots without a valid one; invalidate
-    landmarks of recycled or dead slots. Returns (lm, lm_fid, born, p):
-    born marks the slots triangulated by this call, p is every slot's
-    stereo triangulation."""
+    landmarks of recycled or dead slots. Returns (lm, lm_fid, born, p,
+    tri_ok): born marks the slots triangulated by this call, p / tri_ok are
+    every slot's instantaneous stereo triangulation (read by the birth
+    refinement and the scene-flow gate)."""
     T_W_C = T_W_B @ rig.T_B_C                               # (2,4,4)
     p, tri_ok = triangulate_stereo(T_W_C[0], T_W_C[1], obs_cur[0],
                                    obs_cur[1])
@@ -266,7 +263,95 @@ def _triangulate_new(rig: CameraRig, T_W_B, obs_cur, table: FeatureTable,
     lm_fid = torch.where(want, table.fid, lm_fid)
     stale = (lm_fid != table.fid) | (~table.alive)
     lm_fid = torch.where(stale & ~want, torch.full_like(lm_fid, -1), lm_fid)
-    return lm, lm_fid, want, p
+    return lm, lm_fid, want, p, tri_ok
+
+
+def reprojection_outliers(T_C_B, kf_T_W_B, lm, obs, eff_mask, lm_valid,
+                          thr_sq):
+    """Valid landmarks whose worst squared reprojection error over the
+    window's masked observations exceeds thr_sq, or that lie behind a
+    camera there. Returns (N,) bool."""
+    T_B_W = lie.se3_inverse(kf_T_W_B)[:, None, None]      # (W,1,1,4,4)
+    T_cb = T_C_B[None, :, None]                            # (1,2,1,4,4)
+    p_B = (T_B_W[..., :3, :3] @ lm[None, None, :, :, None])[..., 0] \
+        + T_B_W[..., :3, 3]
+    p_C = (T_cb[..., :3, :3] @ p_B[..., None])[..., 0] + T_cb[..., :3, 3]
+    z = torch.clamp(p_C[..., 2], min=1e-6)
+    proj = p_C[..., :2] / z[..., None]
+    err = ((proj - obs) ** 2).sum(-1)                      # (W,2,N)
+    err = torch.where(p_C[..., 2] > 1e-6, err, torch.full_like(err,
+                                                                torch.inf))
+    err = torch.where(eff_mask, err, torch.zeros_like(err))
+    return lm_valid & (err.amax(dim=(0, 1)) > thr_sq)
+
+
+def nanmedian_columns(x):
+    """(M, K) -> (K,): each column's median over its non-NaN entries, the
+    two middle values averaged for an even count as ``jnp.nanmedian`` does
+    (``torch.nanmedian`` takes the lower one), NaN for a column without
+    one. The interpolation weights are JAX's, so the values agree to the
+    last bit."""
+    srt, _ = torch.sort(x, dim=0)                  # NaNs sort last
+    n = (~torch.isnan(x)).sum(dim=0)
+    q = 0.5 * (n - 1).to(x.dtype)
+    lo_q, hi_q = torch.floor(q), torch.ceil(q)
+    w_hi = q - lo_q
+    top = torch.clamp(n - 1, min=0)
+    lo = torch.minimum(torch.clamp(lo_q, min=0).long(), top)
+    hi = torch.minimum(torch.clamp(hi_q, min=0).long(), top)
+    return (srt.gather(0, lo[None])[0] * (1.0 - w_hi)
+            + srt.gather(0, hi[None])[0] * w_hi)
+
+
+def scene_flow_gate(cfg: EstimatorConfig, rig: CameraRig, T_cur, obs_cur,
+                    obs_cur_mask, table: FeatureTable, tri_all, tri_ok,
+                    tri_prev, tri_prev_fid, flow_acc, flow_n):
+    """Stereo scene-flow dynamic-object gate (EstimatorConfig.
+    dynamic_flow_thresh): the previous keyframe's instantaneous
+    triangulation of each track is reprojected into the current left
+    camera; the residual flow against the current observation, optionally
+    median-centred, is accumulated with decay, and a track whose
+    accumulated norm exceeds the threshold after dynamic_flow_min_n
+    measurements is killed. Returns (kill (N,), tri_mem, n_dyn) with
+    tri_mem the updated (tri_prev, tri_prev_fid, flow_acc, flow_n)."""
+    tri_valid = tri_ok & table.alive
+    T_C_W = rig.T_C_B[0] @ lie.se3_inverse(T_cur)
+    pC = (tri_prev @ T_C_W[:3, :3].T) + T_C_W[:3, 3]
+    in_front = pC[:, 2] > 1e-6
+    proj = pC[:, :2] / torch.clamp(pC[:, 2:3], min=1e-6)
+    have_flow = (tri_valid & in_front & obs_cur_mask[0]
+                 & (tri_prev_fid == table.fid) & (tri_prev_fid >= 0))
+    flow = obs_cur[0] - proj                              # (N,2)
+    if cfg.dynamic_flow_center:
+        med = nanmedian_columns(torch.where(
+            have_flow[:, None], flow, torch.full_like(flow, torch.nan)))
+        flow = flow - torch.where(torch.isfinite(med), med,
+                                  torch.zeros_like(med))
+    acc = torch.where(have_flow[:, None],
+                      cfg.dynamic_flow_decay * flow_acc + flow,
+                      torch.zeros_like(flow))
+    n_fl = torch.where(have_flow, flow_n + 1, torch.zeros_like(flow_n))
+    kill = (have_flow & (n_fl >= cfg.dynamic_flow_min_n)
+            & (torch.linalg.vector_norm(acc, dim=1)
+               > cfg.dynamic_flow_thresh))
+    acc = torch.where(kill[:, None], torch.zeros_like(acc), acc)
+    n_fl = torch.where(kill, torch.zeros_like(n_fl), n_fl)
+    fid_mem = torch.where(tri_valid & ~kill, table.fid,
+                          torch.full_like(table.fid, -1))
+    return (kill, (tri_all, fid_mem, acc, n_fl),
+            kill.to(torch.int32).sum(dtype=torch.int32))
+
+
+def cv_seed(state: EstimatorState):
+    """The guarded constant-velocity PnP seed (pnp_cv_predict): the last
+    frame-to-frame motion extrapolated once, or the last keyframe's pose
+    where that motion is non-finite or implausible (>= 0.5 m or >= 0.5
+    rad). Returns (T_pred, cv_ok)."""
+    delta = lie.se3_inverse(state.T_W_B_prev) @ state.T_W_B
+    cv_ok = (torch.isfinite(delta).all()
+             & (torch.linalg.vector_norm(delta[:3, 3]) < 0.5)
+             & (lie.rotation_angle(delta[:3, :3]) < 0.5))
+    return torch.where(cv_ok, state.T_W_B @ delta, state.last_kf_T_W_B), cv_ok
 
 
 class MotionOut(NamedTuple):
@@ -284,17 +369,21 @@ class MotionOut(NamedTuple):
 def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
                obs_cur_mask, lm, lm_fid, lm_birth, kf_count, last_kf_T_W_B,
                frame_id, T_pred, T_gate_seed, T_prior, T_fallback,
-               obs_w_slots=None, health_prev=None,
+               obs_w_slots=None, cv_bound_check=False, health_prev=None,
                draws=gumbel_draws) -> MotionOut:
     """PnP motion tracking + keyframe policy: the optional RANSAC pre-gate
     (verified against the frozen birth map lm_birth, hypotheses seeded at
     T_gate_seed, draws from `draws(frame_id, shape, dtype, device)`), the
     track health from its inlier fraction, the LM PnP polish with optional
     score weights obs_w_slots and health-scaled motion prior, the
-    numerical-health recovery, the keyframe test and the outlier kill."""
+    keyframe-relative bound of the constant-velocity seed
+    (cv_bound_check), the numerical-health recovery, the keyframe test and
+    the outlier kill."""
     dev, dtype = T_pred.device, T_pred.dtype
     window_full = kf_count >= cfg.window_size
-    pnp_ready = kf_count >= 1      # track_before_full (the only mode ported)
+    # PnP engages once any landmark exists, or with track_before_full=False
+    # only once the window is full.
+    pnp_ready = (kf_count >= 1) if cfg.track_before_full else window_full
 
     lm_ok = (lm_fid == table.fid) & (lm_fid >= 0) & table.alive
     pnp_mask = obs_cur_mask & lm_ok[None, :]
@@ -339,6 +428,15 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
         T_pnp, pnp_success = res.T_W_B, res.success
     else:
         T_pnp, pnp_success = T_fallback, false
+    if cv_bound_check:
+        # Motion since the last keyframe beyond ~10 keyframe thresholds is
+        # the extrapolation's feedback loop, not the camera: fail PnP.
+        rel = lie.se3_inverse(last_kf_T_W_B) @ T_pnp
+        bound_ok = ((torch.linalg.vector_norm(rel[:3, 3])
+                     <= 10.0 * cfg.translation_threshold + 0.5)
+                    & (lie.rotation_angle(rel[:3, :3])
+                       <= 10.0 * cfg.rotation_threshold + 0.5))
+        pnp_success = pnp_success & bound_ok
     T_cur = torch.where(pnp_success, T_pnp, T_fallback)
 
     # Numerical-health gate: a non-finite pose recovers to the last keyframe.
@@ -369,7 +467,8 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
 
 class KFPrep(NamedTuple):
     """Keyframe prologue outputs consumed by the window solve and the
-    epilogue."""
+    epilogue (the JAX KFPrep's fields)."""
+    table: FeatureTable       # after the scene-flow gate's kills
     kf_T: torch.Tensor        # (W,4,4) rolled window incl. this keyframe
     kf_count: torch.Tensor    # () int32 new count
     obs_w: torch.Tensor       # (W,2,N,2)
@@ -380,8 +479,11 @@ class KFPrep(NamedTuple):
     lm_fid: torch.Tensor      # (N,)
     eff_mask: torch.Tensor    # (W,2,N) BA observation validity
     lm_valid: torch.Tensor    # (N,)
+    tri_mem: tuple            # scene-flow gate memory (4 tensors or Nones)
+    n_dyn: torch.Tensor       # () int32 tracks killed by the flow gate
     lm_birth: torch.Tensor    # (N,3) frozen birth map (None: gate off)
     full_now: torch.Tensor    # () bool run BA this keyframe
+    will_evict: torch.Tensor  # () bool the next insert rolls the window
 
 
 class Stages(NamedTuple):
@@ -394,7 +496,13 @@ class Stages(NamedTuple):
     opt: callable
 
 
-def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
+def _count(probe, key, mask):
+    """Add mask's count to probe[key] on the device (no sync)."""
+    if probe is not None:
+        probe[key] = probe.get(key, 0) + mask.to(torch.int64).sum()
+
+
+def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
     check_config(cfg)
     W = cfg.window_size
     levels = cfg.frontend.klt.levels
@@ -416,25 +524,44 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
 
     def stage_motion(state: EstimatorState, rig: CameraRig, table, obs_cur,
                      obs_cur_mask) -> MotionOut:
-        # Init from the current (last-optimized) pose; the prior anchor is
-        # the measured previous pose.
+        # Init from the current (last-optimized) pose, or from the guarded
+        # constant-velocity seed; the prior anchor is always the measured
+        # previous pose.
+        T_pred = state.T_W_B
+        if cfg.pnp_cv_predict:
+            T_pred, cv_ok = cv_seed(state)
+            _count(probe, "cv_seeded", cv_ok)
+            _count(probe, "cv_fallback", ~cv_ok)
         return run_motion(
             cfg, rig, table, obs_cur, obs_cur_mask, state.lm, state.lm_fid,
             state.lm_birth, state.kf_count, state.last_kf_T_W_B,
-            state.frame_id, T_pred=state.T_W_B, T_gate_seed=state.T_W_B,
+            state.frame_id, T_pred=T_pred, T_gate_seed=state.T_W_B,
             T_prior=state.T_W_B, T_fallback=state.T_W_B,
             obs_w_slots=(effective_weights(cfg, table)
                          if cfg.use_obs_weights else None),
+            cv_bound_check=cfg.pnp_cv_predict,
             health_prev=state.health_ema, draws=draws)
 
     def stage_kf_pre(state: EstimatorState, rig: CameraRig, table, obs_cur,
                      obs_cur_mask, T_cur, health) -> KFPrep:
-        """Triangulate new landmarks, FIFO-roll the window, insert the
-        frame, build the BA masks. Works on copies; the input state is not
-        modified. `state` carries the excised lm_fid."""
+        """Triangulate new landmarks, run the scene-flow gate, FIFO-roll the
+        window, insert the frame, build the BA masks, optionally refine the
+        births. Works on copies; the input state is not modified. `state`
+        carries the excised lm_fid."""
         window_full = state.kf_count >= W
-        lm, lm_fid, born, tri_all = _triangulate_new(
+        lm, lm_fid, born, tri_all, tri_ok = _triangulate_new(
             rig, T_cur, obs_cur, table, state.lm, state.lm_fid)
+        tri_mem = (state.tri_prev, state.tri_prev_fid, state.flow_acc,
+                   state.flow_n)
+        n_dyn = torch.zeros((), dtype=torch.int32, device=T_cur.device)
+        if cfg.dynamic_flow_thresh > 0:
+            kill_dyn, tri_mem, n_dyn = scene_flow_gate(
+                cfg, rig, T_cur, obs_cur, obs_cur_mask, table, tri_all,
+                tri_ok, *tri_mem)
+            table = table._replace(alive=table.alive & ~kill_dyn)
+            lm_fid = torch.where(kill_dyn, torch.full_like(lm_fid, -1),
+                                 lm_fid)
+            _count(probe, "flow_tracked", tri_mem[3] > 0)
         obs_cur_mask_eff = obs_cur_mask & table.alive[None, :]
         # Frozen verification map: capture births, never refit.
         lm_birth = (torch.where(born[:, None], tri_all, state.lm_birth)
@@ -458,22 +585,64 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
                                         min=cfg.health_floor)
         obs_wt = roll_insert(state.obs_w, w_ins)
         kf_count = torch.clamp(state.kf_count + 1, max=W)
-        full_now = kf_count >= 2       # track_before_full
+        # BA once two keyframes exist, or with track_before_full=False
+        # only once the window is full.
+        full_now = kf_count >= (2 if cfg.track_before_full else W)
         eff_mask = obs_m & (obs_f == table.fid[None, :])[:, None, :]
         kf_valid = torch.arange(W, device=kf_count.device) < kf_count
         eff_mask = eff_mask & kf_valid[:, None, None]
         lm_valid = (lm_fid == table.fid) & (lm_fid >= 0)
-        return KFPrep(kf_T=kf_T, kf_count=kf_count, obs_w=obs_w,
+        if cfg.refine_births:
+            # Polish fresh births against every window observation of their
+            # feature, the rolled window's poses fixed, before BA.
+            lm_ref, ok_ref = projection.refine_landmarks(
+                rig.T_C_B, lie.se3_inverse(kf_T), lm, obs_w,
+                eff_mask & born[None, None, :])
+            refined = born & ok_ref
+            lm = torch.where(refined[:, None], lm_ref, lm)
+            _count(probe, "refined", refined)
+        # will_evict is not full_now: a prior made before the window is at
+        # capacity would be rolled against a window that does not roll.
+        return KFPrep(table=table, kf_T=kf_T, kf_count=kf_count, obs_w=obs_w,
                       obs_m=obs_m, obs_f=obs_f, obs_wt=obs_wt, lm=lm,
                       lm_fid=lm_fid, eff_mask=eff_mask, lm_valid=lm_valid,
-                      lm_birth=lm_birth, full_now=full_now)
+                      tri_mem=tri_mem, n_dyn=n_dyn, lm_birth=lm_birth,
+                      full_now=full_now, will_evict=kf_count >= W)
 
-    def stage_kf_post(prep: KFPrep, res_T, res_lm, ba_ok):
+    def ba_solve(prep: KFPrep, rig: CameraRig, marg_prior):
+        """The window solve: (poses, landmarks, ok, iterations, cost, the
+        next marginalization prior)."""
+        ba_w = prep.obs_wt if cfg.use_obs_weights else None
+        if cfg.use_marginalization:
+            res, new_prior = ba_mod.solve_ba_marginalized(
+                prep.kf_T, rig.T_C_B, prep.lm, prep.obs_w, prep.eff_mask,
+                prep.lm_valid, marg_prior, prep.will_evict, cfg.ba,
+                obs_weight=ba_w)
+            _count(probe, "priors_made", prep.will_evict & res.success)
+        else:
+            res = ba_mod.solve_ba(prep.kf_T, rig.T_C_B, prep.lm, prep.obs_w,
+                                  prep.eff_mask, prep.lm_valid, cfg.ba,
+                                  obs_weight=ba_w)
+            new_prior = marg_prior
+        return (res.T_W_B, res.landmarks, res.success, res.iterations,
+                res.final_cost, new_prior)
+
+    def stage_kf_post(prep: KFPrep, rig: CameraRig, res_T, res_lm, ba_ok):
+        """Accept or reject the solve, cull landmarks the accepted window
+        cannot explain (cull_reproj_threshold), and take the new pose."""
         kf_T = torch.where(ba_ok, res_T, prep.kf_T)
         lm = torch.where(ba_ok, res_lm, prep.lm)
+        lm_fid = prep.lm_fid
+        if cfg.cull_reproj_threshold > 0.0:
+            bad = reprojection_outliers(
+                rig.T_C_B, kf_T, lm, prep.obs_w, prep.eff_mask,
+                prep.lm_valid, cfg.cull_reproj_threshold ** 2) & ba_ok
+            lm_fid = torch.where(bad, torch.full_like(lm_fid, -1), lm_fid)
+            _count(probe, "cull_checked", prep.lm_valid & ba_ok)
+            _count(probe, "culled", bad)
         last = (torch.clamp(prep.kf_count, max=W) - 1).to(torch.int64)
         T_new = kf_T.index_select(0, last.reshape(1))[0]
-        return kf_T, lm, prep.lm_fid, T_new
+        return kf_T, lm, lm_fid, T_new
 
     def stage_opt(state: EstimatorState, rig: CameraRig, pyr0, pyr1, table,
                   fstats, obs_cur, obs_cur_mask, mo: MotionOut):
@@ -488,30 +657,33 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
             prep = stage_kf_pre(state, rig, table, obs_cur, obs_cur_mask,
                                 T_cur, mo.health)
             # Host branch (JAX: lax.cond on full_now): one sync per keyframe.
+            # A skipped solve passes the prior through unchanged.
             if bool(prep.full_now):
-                res = ba_mod.solve_ba(
-                    prep.kf_T, rig.T_C_B, prep.lm, prep.obs_w, prep.eff_mask,
-                    prep.lm_valid, cfg.ba,
-                    obs_weight=prep.obs_wt if cfg.use_obs_weights else None)
-                res_T, res_lm, ba_ok, ba_it, ba_cost = (
-                    res.T_W_B, res.landmarks, res.success, res.iterations,
-                    res.final_cost)
+                res_T, res_lm, ba_ok, ba_it, ba_cost, marg_prior = ba_solve(
+                    prep, rig, state.marg_prior)
             else:
                 res_T, res_lm = prep.kf_T, prep.lm
                 ba_ok = torch.tensor(False, device=dev)
                 ba_it = torch.tensor(0, dtype=torch.int32, device=dev)
                 ba_cost = torch.tensor(0.0, dtype=T_cur.dtype, device=dev)
-            kf_T, lm, lm_fid, T_new = stage_kf_post(prep, res_T, res_lm,
-                                                    ba_ok)
+                marg_prior = state.marg_prior
+            kf_T, lm, lm_fid, T_new = stage_kf_post(prep, rig, res_T,
+                                                    res_lm, ba_ok)
             kf_count, obs_w, obs_m, obs_f, obs_wt, lm_birth = (
                 prep.kf_count, prep.obs_w, prep.obs_m, prep.obs_f,
                 prep.obs_wt, prep.lm_birth)
+            table = prep.table
+            tri_mem, n_dyn = prep.tri_mem, prep.n_dyn
             T_out, last_kf = T_new, T_new
         else:
             kf_T, kf_count = state.kf_T_W_B, state.kf_count
             obs_w, obs_m, obs_f, obs_wt = (state.obs, state.obs_mask,
                                            state.obs_fid, state.obs_w)
             lm, lm_fid, lm_birth = state.lm, state.lm_fid, state.lm_birth
+            marg_prior = state.marg_prior
+            tri_mem = (state.tri_prev, state.tri_prev_fid, state.flow_acc,
+                       state.flow_n)
+            n_dyn = torch.zeros((), dtype=torch.int32, device=dev)
             T_out, last_kf = T_cur, state.last_kf_T_W_B
             ba_ok = torch.tensor(False, device=dev)
             ba_it = torch.tensor(0, dtype=torch.int32, device=dev)
@@ -520,9 +692,11 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
         new_state = EstimatorState(
             table=table, pyr0=pyr0, pyr1=pyr1, kf_T_W_B=kf_T,
             kf_count=kf_count, obs=obs_w, obs_mask=obs_m, obs_fid=obs_f,
-            obs_w=obs_wt, lm=lm, lm_fid=lm_fid, marg_prior=state.marg_prior,
+            obs_w=obs_wt, lm=lm, lm_fid=lm_fid, marg_prior=marg_prior,
             T_W_B=T_out, last_kf_T_W_B=last_kf,
             frame_id=state.frame_id + 1, T_W_B_prev=state.T_W_B,
+            tri_prev=tri_mem[0], tri_prev_fid=tri_mem[1],
+            flow_acc=tri_mem[2], flow_n=tri_mem[3],
             lm_birth=lm_birth,
             health_ema=mo.health if state.health_ema is not None else None)
         out = FrameOutput(
@@ -532,7 +706,7 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
             n_landmarks=((lm_fid == table.fid) & (lm_fid >= 0))
             .to(torch.int32).sum(dtype=torch.int32),
             n_alive=fstats["alive"], pose_ok=mo.pose_ok,
-            n_dyn_killed=torch.tensor(0, dtype=torch.int32, device=dev),
+            n_dyn_killed=n_dyn,
             n_ransac_inliers=mo.n_inliers, n_pnp_candidates=mo.n_pnp,
             health=mo.health)
         return new_state, out
@@ -541,13 +715,22 @@ def _build_stages(cfg: EstimatorConfig, draws) -> Stages:
                   motion=stage_motion, opt=stage_opt)
 
 
-def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws):
+def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
+                        probe=None):
     """Build the per-frame step (state, rig, img0, img1) -> (state, out).
     Pins full fp32 (``utils.precision.pin_fp32``) and validates the config
     when called. `draws(frame_id, shape, dtype, device)` gives the RANSAC
-    gate's Gumbel draws (tests pass the JAX package's)."""
+    gate's Gumbel draws (tests pass the JAX package's). `probe`: an
+    optional dict into which the step adds, as device counts, what the
+    window options did — "cv_seeded" / "cv_fallback" (frames whose PnP
+    started from the constant-velocity seed or fell back to the last
+    keyframe), "refined", "cull_checked" and "culled" (landmarks refined
+    at birth, held to the cull threshold after an accepted solve, and
+    culled), "flow_tracked" (tracks carrying an accumulated scene flow
+    after a keyframe's gate), "priors_made" (marginalized solves that
+    produced the next prior)."""
     pin_fp32()
-    st = _build_stages(cfg, draws)
+    st = _build_stages(cfg, draws, probe)
 
     def step(state: EstimatorState, rig: CameraRig, img0, img1):
         pyr0, pyr1 = st.frames(img0, img1)
@@ -564,14 +747,15 @@ STAGE_NAMES = ("frame_creation", "patch_tracking", "motion_tracking",
                "optimization")
 
 
-def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws):
+def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
+                              probe=None):
     """The step with a synchronized per-stage split: returns
     step(state, rig, img0, img1) -> (state, out, times_ms) with times_ms a
-    dict over STAGE_NAMES. Same stages and results as
+    dict over STAGE_NAMES. Same stages, arguments and results as
     make_estimator_step; the syncs make it slower, so use it for diagnosis.
     """
     pin_fp32()
-    st = _build_stages(cfg, draws)
+    st = _build_stages(cfg, draws, probe)
 
     def sync(device):
         if device.type == "cuda":

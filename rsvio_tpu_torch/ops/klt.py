@@ -89,25 +89,40 @@ def _kernel_kw(cfg: KLTConfig):
 
 def _bidir_kernel(src_pyrs, dst_pyrs, pos_src, alive, cfg: KLTConfig,
                   cam=None):
+    """One ``klt_bidir`` call. The kernel takes float32 only (as the TPU
+    kernel, which writes float32 whatever it is given), so the pyramids and
+    positions are cast to float32 here and the results back to the
+    caller's dtype; a failed feature keeps the caller's exact source."""
+    dtype = pos_src.dtype
     src, dims = pack_pyramids(src_pyrs)
     dst, _ = pack_pyramids(dst_pyrs)
     if cam is None:
         cam = torch.zeros(pos_src.shape[0], dtype=torch.int32,
                           device=pos_src.device)
     pos, theta, ok = klt_bidir(
-        src, dst, dims, pos_src.contiguous(), alive.contiguous(),
-        cam.contiguous(), bidir_thresh_sq=cfg.bidir_threshold_sq,
+        src.float(), dst.float(), dims, pos_src.float().contiguous(),
+        alive.contiguous(), cam.contiguous(),
+        bidir_thresh_sq=cfg.bidir_threshold_sq,
         pyramid_ratio=cfg.pyramid_ratio,
         coarse_tolerant=cfg.coarse_level_policy == "tolerant",
         **_kernel_kw(cfg))
-    return pos, theta_to_A(theta), ok
+    if dtype != torch.float32:
+        pos = torch.where(ok[:, None], pos.to(dtype), pos_src)
+    return pos, theta_to_A(theta.to(dtype)), ok
 
 
 def _track_points_kernel(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive,
                          cfg: KLTConfig, level_fn=klt_level):
     """Coarse to fine with one ``level_fn`` call per level (``klt_level``;
     ``klt_level_reference`` to check the composition against); the angle is
-    carried across levels (it is scale-free) and returned as a rotation."""
+    carried across levels (it is scale-free) and returned as a rotation.
+    The composition runs in float32, the kernel's only dtype, and the
+    results are cast back to the caller's dtype."""
+    dtype = pos_src.dtype
+    pos_in = pos_src
+    pyr_src = [lvl.float() for lvl in pyr_src]
+    pyr_dst = [lvl.float() for lvl in pyr_dst]
+    pos_src, pos_dst0, A0 = pos_src.float(), pos_dst0.float(), A0.float()
     n = pos_src.shape[0]
     cam = torch.zeros(n, dtype=torch.int32, device=pos_src.device)
     alive = alive.contiguous()
@@ -128,8 +143,8 @@ def _track_points_kernel(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive,
     (pos, theta), ok = coarse_to_fine(
         len(pyr_src), level, (pos_dst0, theta), alive,
         cfg.coarse_level_policy == "tolerant")
-    pos = torch.where(ok[:, None], pos, pos_src)
-    return pos, theta_to_A(theta), ok
+    pos = torch.where(ok[:, None], pos.to(dtype), pos_in)
+    return pos, theta_to_A(theta.to(dtype)), ok
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Reprojection residuals with analytic Jacobians, shared by PnP and BA, and
-stereo midpoint triangulation.
+"""Reprojection residuals with analytic Jacobians, shared by PnP and BA,
+stereo midpoint triangulation, and the N-view point-only refinement
+``refine_landmarks`` (the ``refine_births`` option).
 
-Port of rsvio_tpu/ops/projection.py (``refine_landmarks`` waits: it serves
-the ``refine_births`` option only). The JAX functions are per-observation
+Port of rsvio_tpu/ops/projection.py. The JAX functions are per-observation
 and vmapped by their callers; here every argument carries broadcastable
 leading dimensions, so the solvers linearize the whole (window x camera x
 landmark) observation tensor in one call.
@@ -126,3 +126,50 @@ def triangulate_stereo(T_W_Cl, T_W_Cr, xy_l, xy_r):
     p = 0.5 * ((o1 + s[..., None] * d1) + (o2 + t[..., None] * d2))
     valid = (torch.abs(det) > 1e-6) & (s > 1e-3) & (t > 1e-3)
     return p, valid
+
+
+def refine_landmarks(T_C_B, T_B_W, landmarks, obs, mask,
+                     iterations: int = 5, huber_delta: float = 2.0,
+                     lm_lambda: float = 1e-6):
+    """N-view point-only refinement: Gauss-Newton over each landmark with
+    every camera pose fixed.
+
+    T_C_B (2,4,4) camera-from-body, T_B_W (W,4,4) body-from-world (fixed),
+    landmarks (L,3) initial points, obs (W,2,L,2) normalized observations,
+    mask (W,2,L). Each landmark's step is a closed-form damped 3x3 solve,
+    kept only where it is finite and does not raise the robust cost. The
+    JAX ``fori_loop`` becomes the same fixed trip of `iterations` over all
+    landmarks at once: no early exit, no host sync. Returns (landmarks
+    (L,3), ok (L,)); ok needs >= 2 observations, a well-conditioned final
+    system and a finite point, and a landmark without it comes back
+    unchanged.
+    """
+    from ..models.ba import _inv3x3
+
+    eye = torch.eye(3, dtype=landmarks.dtype, device=landmarks.device)
+    n_obs = mask.sum(dim=(0, 1))                          # (L,)
+
+    def lin(p):
+        """Normal equations and robust cost of every landmark at p:
+        H (L,3,3), g (L,3), cost (L,)."""
+        li = linearize_projection(T_C_B[None, :, None], T_B_W[:, None, None],
+                                  p[None, None], obs, mask, huber_delta)
+        return (torch.einsum("wclri,wclrj->lij", li.J_lm, li.J_lm),
+                torch.einsum("wclri,wclr->li", li.J_lm, li.r),
+                li.cost.sum(dim=(0, 1)))
+
+    p = landmarks
+    H, g, cost = lin(p)
+    for _ in range(iterations):
+        H_inv, inv_ok = _inv3x3(H + lm_lambda * eye)
+        p_new = p - _mv(H_inv, g)
+        H_n, g_n, cost_n = lin(p_new)
+        ok = (inv_ok & torch.isfinite(p_new).all(dim=-1)
+              & (cost_n <= cost))
+        p = torch.where(ok[:, None], p_new, p)
+        H = torch.where(ok[:, None, None], H_n, H)
+        g = torch.where(ok[:, None], g_n, g)
+        cost = torch.where(ok, cost_n, cost)
+    _, cond_ok = _inv3x3(H + lm_lambda * eye)
+    ok = (n_obs >= 2) & cond_ok & torch.isfinite(p).all(dim=-1)
+    return torch.where(ok[:, None], p, landmarks), ok

@@ -227,23 +227,11 @@ def test_split_step_matches_fused_step(torch_step):
         assert int(o1.n_alive) == int(o2.n_alive)
 
 
-# The options ported since (score weights, the starvation floor, EUCM, the
-# RANSAC gate and the adaptive health) are held to JAX by
-# tests/test_torch_options.py::test_ported_option_runs_and_matches_jax.
-UNPORTED = [
-    pytest.param(dict(use_marginalization=True), id="use_marginalization"),
-    pytest.param(dict(dynamic_flow_thresh=0.02), id="dynamic_flow_thresh"),
-    pytest.param(dict(refine_births=True), id="refine_births"),
-    pytest.param(dict(cull_reproj_threshold=0.01), id="cull_reproj"),
-    pytest.param(dict(pnp_cv_predict=True), id="pnp_cv_predict"),
-    pytest.param(dict(track_before_full=False), id="track_before_full"),
-]
-
-
-@pytest.mark.parametrize("opt", UNPORTED)
-def test_unported_options_raise(opt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_.make_estimator_step(test_.EstimatorConfig(**opt))
+# Every EstimatorConfig option is ported: the shipped configs' options are
+# held to JAX by tests/test_torch_options.py, the window options
+# (marginalization, culling, birth refinement, the constant-velocity seed,
+# the scene-flow gate, track_before_full=False) by
+# tests/test_torch_options_window.py.
 
 
 @pytest.mark.parametrize("opt", [

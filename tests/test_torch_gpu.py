@@ -22,21 +22,36 @@ equal to the CPU's, EUCM and radtan ``unproject`` and ``ransac_pnp_gate``
 on CUDA against the CPU (1e-5 relative; the gate's mask, ok and count
 equal), and the adaptive config's step on CUDA (kernel) against the CPU
 (plain version) to the whole-step tolerance below.
+
+The window options: ``marginalize_oldest`` / ``prior_terms`` /
+``solve_ba_marginalized`` / ``refine_landmarks`` / ``reprojection_outliers``
+/ ``scene_flow_gate`` on CUDA against the CPU (float32: priors within 1e-4
+relative to max|H|, points within 1e-4 relative, masks and kill sets
+equal; float64 results 1e-9, refined points 1e-7: a converged
+Gauss-Newton step's keep-or-drop test compares costs at their rounding),
+the step with every window option on CUDA
+against the CPU, the marginalized step making as many host syncs per frame
+as the default step (``torch.cuda.set_sync_debug_mode("warn")``), and one
+``precision: f64`` config frame through the CUDA kernel (float32 inside
+the kernel, float64 around it).
 """
 
 import glob
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from rsvio_tpu_torch.data import bench_scene
+from rsvio_tpu_torch.models import ba as ba_mod
 from rsvio_tpu_torch.models import estimator as est
+from rsvio_tpu_torch.models import marginalization as marg
 from rsvio_tpu_torch.models import pnp as pnp_mod
 from rsvio_tpu_torch.models.frontend import FrontendConfig
-from rsvio_tpu_torch.ops import cameras, klt, lie, pyramid
+from rsvio_tpu_torch.ops import cameras, klt, lie, projection, pyramid
 from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 from rsvio_tpu_torch.ops.klt import KLTConfig
 from rsvio_tpu_torch.utils import config as config_mod
@@ -559,3 +574,269 @@ def test_adaptive_step_on_cuda_matches_cpu(dev):
         assert abs(float(oc.health) - float(og.health)) <= 1e-4
     assert float(outs["cuda"][-1].T_W_B[0, 3]) > 0.05
     assert any(int(o.n_ransac_inliers) >= 12 for o in outs["cuda"])
+
+
+# --------------------------------------------------------------------------
+# The window options (marginalization, culling, refinement, flow gate)
+# --------------------------------------------------------------------------
+
+def _window_problem(dtype, seed=5, w=5, n=40):
+    """A stereo window: poses 0.3 m apart, landmarks 3-8 m ahead seen in
+    every frame, ~1 px noise; the initial poses and points perturbed."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64)
+
+    T_C_B = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
+    T_C_B[1, 0, 3] = -0.11
+    T_gt = lie.se3_exp(torch.cat([torch.stack([
+        torch.tensor([0.3 * i, 0.02 * i, 0.0], dtype=torch.float64)
+        for i in range(w)]), rnd(w, 3) * 0.05], dim=1))
+    p_W = torch.rand((n, 3), generator=gen, dtype=torch.float64) \
+        * torch.tensor([6.0, 4.0, 5.0], dtype=torch.float64) \
+        + torch.tensor([-2.0, -2.0, 3.0], dtype=torch.float64)
+    T_B_W = lie.se3_inverse(T_gt)
+    p_B = (T_B_W[:, None, :3, :3] @ p_W[None, :, :, None])[..., 0] \
+        + T_B_W[:, None, :3, 3]
+    p_C = p_B[:, None] + T_C_B[None, :, None, :3, 3]
+    obs = p_C[..., :2] / p_C[..., 2:] + rnd(w, 2, n, 2) * 2e-3
+    mask = p_C[..., 2] > 0.5
+    T_init = T_gt @ lie.se3_exp(torch.cat([torch.zeros(1, 6,
+                                                       dtype=torch.float64),
+                                           rnd(w - 1, 6) * 0.01]))
+    lms = p_W + rnd(n, 3) * 0.05
+    return [x.to(dtype) for x in (T_init, T_C_B, lms, obs)] + [
+        mask, torch.ones(n, dtype=torch.bool)]
+
+
+def _close(a, b, rel, scale=None):
+    if a.dtype == torch.bool or not a.is_floating_point():
+        assert torch.equal(a.cpu(), b), (a, b)
+        return
+    s = float(b.abs().max()) if scale is None else scale
+    torch.testing.assert_close(a.cpu(), b, rtol=0,
+                               atol=rel * max(s, 1.0), equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fn", ["marginalize_oldest", "solve_ba_marginalized",
+                                "refine_landmarks", "reprojection_outliers",
+                                "scene_flow_gate"])
+def test_window_functions_on_cuda_match_cpu(dev, fn, dtype):
+    rel = 1e-4 if dtype == torch.float32 else 1e-9
+    T_init, T_C_B, lms, obs, mask, lm_valid = _window_problem(dtype)
+    W = T_init.shape[0]
+
+    def both(f, *args):
+        cpu = f(*args)
+        gpu = f(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        return cpu, gpu
+
+    if fn == "marginalize_oldest":
+        gen = torch.Generator().manual_seed(0)
+        A = torch.randn((W * 6, W * 6), generator=gen, dtype=torch.float64)
+        H = (A @ A.T + 0.1 * torch.eye(W * 6, dtype=torch.float64)).to(dtype)
+        g = torch.randn(W * 6, generator=gen, dtype=torch.float64).to(dtype)
+        pc, pg = both(lambda *a: marg.marginalize_oldest(
+            *a, marg.empty_prior(W, 6, dtype, a[0].device), 6),
+            H, g, T_init, torch.zeros((W, 0), dtype=dtype))
+        scale = float(pc.H.abs().max())
+        for a, b in zip(pg, pc):
+            _close(a, b, rel, scale)
+        tc = marg.prior_terms(pc, T_init, torch.zeros((W, 0), dtype=dtype))
+        tg = marg.prior_terms(marg.MargPrior(*(x.to(dev) for x in pc)),
+                              T_init.to(dev), torch.zeros((W, 0), dtype=dtype,
+                                                          device=dev))
+        for a, b in zip(tg, tc):
+            _close(a, b, rel, scale)
+    elif fn == "solve_ba_marginalized":
+        args = (T_init, T_C_B, lms, obs, mask, lm_valid)
+        rc, pc = ba_mod.solve_ba_marginalized(
+            *args, marg.empty_prior(W, 6, dtype, "cpu"), torch.tensor(True))
+        rg, pg = ba_mod.solve_ba_marginalized(
+            *(a.to(dev) for a in args), marg.empty_prior(W, 6, dtype, dev),
+            torch.tensor(True, device=dev))
+        assert bool(rc.success) and bool(rg.success) and bool(pg.valid)
+        _close(rg.T_W_B, rc.T_W_B, 1e-4 if dtype == torch.float32 else 1e-6)
+        scale = float(pc.H.abs().max())
+        for a, b in zip(pg, pc):
+            _close(a, b, rel if dtype == torch.float64 else 1e-3, scale)
+        # The next solve on the rolled window (oldest dropped, newest
+        # repeated), anchored by each side's prior: no pose is fixed.
+        def roll(a):
+            return torch.cat([a[1:], a[-1:]])
+
+        rc2, _ = ba_mod.solve_ba_marginalized(
+            roll(rc.T_W_B), T_C_B, rc.landmarks, roll(obs), roll(mask),
+            lm_valid, pc, torch.tensor(False))
+        rg2, _ = ba_mod.solve_ba_marginalized(
+            roll(rg.T_W_B), T_C_B.to(dev), rg.landmarks, roll(obs).to(dev),
+            roll(mask).to(dev), lm_valid.to(dev), pg,
+            torch.tensor(False, device=dev))
+        assert bool(rc2.success) == bool(rg2.success) is True
+        _close(rg2.T_W_B, rc2.T_W_B, 1e-4 if dtype == torch.float32 else 1e-6)
+    elif fn == "refine_landmarks":
+        (pc, okc), (pg, okg) = both(
+            projection.refine_landmarks, T_C_B, lie.se3_inverse(T_init),
+            lms, obs, mask)
+        assert torch.equal(okg.cpu(), okc) and bool(okc.any())
+        # Each Gauss-Newton step is kept where it does not raise the cost;
+        # once converged that test compares costs at their rounding, which
+        # the two devices' sums reach in another order, so a last step of
+        # ~4e-8 m (measured, float64) can be kept on one and not the other.
+        _close(pg, pc, 1e-4 if dtype == torch.float32 else 1e-7)
+    elif fn == "reprojection_outliers":
+        bad_lms = lms.clone()
+        bad_lms[3] += torch.tensor([1.0, 0.0, 0.0], dtype=dtype)
+        bc, bg = both(est.reprojection_outliers, T_C_B, T_init, bad_lms, obs,
+                      mask, lm_valid, 0.02 ** 2)
+        assert torch.equal(bg.cpu(), bc) and bool(bc[3])
+    else:
+        n = lms.shape[0]
+        cfg = est.EstimatorConfig(dynamic_flow_thresh=0.02)
+        rig = bench_scene.make_rig("cpu", shape=SHAPE, fx=120.0)
+        rig = est.CameraRig(*(x.to(dtype) for x in rig))
+        table = est.init_table(n, dtype, "cpu")._replace(
+            alive=torch.ones(n, dtype=torch.bool),
+            fid=torch.arange(n, dtype=torch.int32))
+        tri = lms.clone()
+        tri[:6, 0] += 0.1 * tri[:6, 2]               # six movers
+        obs_cur = torch.stack([tri[:, :2] / tri[:, 2:],
+                               (tri[:, :2] - torch.tensor(
+                                   [0.11, 0.0], dtype=dtype)) / tri[:, 2:]])
+        mem = (lms, table.fid, torch.zeros((n, 2), dtype=dtype),
+               torch.full((n,), 1, dtype=torch.int32))
+        T = torch.eye(4, dtype=dtype)
+        m = torch.ones((2, n), dtype=torch.bool)
+        ok = torch.ones(n, dtype=torch.bool)
+        kc, memc, nc = est.scene_flow_gate(cfg, rig, T, obs_cur, m, table,
+                                           tri, ok, *mem)
+        kg, memg, ng = est.scene_flow_gate(
+            cfg, est.CameraRig(*(x.to(dev) for x in rig)), T.to(dev),
+            obs_cur.to(dev), m.to(dev), est.FeatureTable(
+                *(x.to(dev) for x in table)), tri.to(dev), ok.to(dev),
+            *(x.to(dev) for x in mem))
+        assert torch.equal(kg.cpu(), kc) and int(ng) == int(nc)
+        assert bool(kc[:6].all()) and not bool(kc[6:].any())
+        for a, b in zip(memg, memc):
+            _close(a, b, rel)
+
+
+def _small_scene(n=8):
+    shape = (96, 128)
+    tex = bench_scene.make_texture(1, size=768,
+                                   octaves=((90.0, 24), (60.0, 96)))
+    frames = bench_scene.stereo_frames(tex, n, step_m=0.02, shape=shape,
+                                       fx=100.0, plane_z=4.0, scale=60.0,
+                                       offset=200.0)
+    cfg = est.EstimatorConfig(
+        frontend=FrontendConfig(capacity=32, cell_size=24, detect_margin=10,
+                                klt=KLTConfig(levels=3, max_iterations=8)),
+        window_size=4, image_shape=shape)
+    return cfg, frames, shape
+
+
+@pytest.mark.gpu
+def test_window_options_step_on_cuda_matches_cpu(dev):
+    """Every window option at once through the whole step: CUDA (kernel)
+    vs CPU (plain), with the option counts equal."""
+    base, frames, shape = _small_scene(10)
+    cfg = base._replace(use_marginalization=True, refine_births=True,
+                        cull_reproj_threshold=3e-4, pnp_cv_predict=True,
+                        dynamic_flow_thresh=1e-3)
+    outs, probes = {}, {}
+    for d in (torch.device("cpu"), dev):
+        probe = {}
+        step = est.make_estimator_step(cfg, probe=probe)
+        rig = bench_scene.make_rig(d, shape=shape, fx=100.0)
+        state = est.init_state(cfg, device=d)
+        outs[d.type] = []
+        for a, b in frames:
+            state, out = step(state, rig, a.to(d), b.to(d))
+            outs[d.type].append(out)
+        probes[d.type] = {k: int(v) for k, v in probe.items()}
+        assert bool(state.marg_prior.valid)
+    assert probes["cpu"] == probes["cuda"]
+    assert probes["cuda"]["priors_made"] >= 2
+    assert probes["cuda"]["refined"] > 0 and probes["cuda"]["cv_seeded"] > 0
+    for oc, og in zip(outs["cpu"], outs["cuda"]):
+        for f in ("n_tracked", "is_keyframe", "ba_success", "n_dyn_killed"):
+            assert int(getattr(oc, f)) == int(getattr(og, f)), f
+        assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 1e-3
+    assert float(outs["cuda"][-1].T_W_B[0, 3]) > 0.05
+
+
+@pytest.mark.gpu
+def test_marginalized_step_adds_no_host_sync(dev):
+    """Host syncs per frame, as torch's sync debug mode reports them (a
+    device-to-host read, and also a host scalar copied to the card): the
+    marginalized step (prior terms, gauge select, prior update, all on the
+    device) makes exactly as many as the default step on frames of the same
+    kind. Each config's sequence runs twice and the second pass is counted,
+    so lazy initialization on first use is not."""
+    base, frames, shape = _small_scene(10)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    per_kind, where = {}, {}
+    for name, cfg in (("default", base),
+                      ("marg", base._replace(use_marginalization=True))):
+        step = est.make_estimator_step(cfg)
+        for counted in (False, True):
+            state = est.init_state(cfg, device=dev)
+            torch.cuda.synchronize()
+            for a, b in frames_d:
+                with warnings.catch_warnings(record=True) as rec:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        state, out = step(state, rig, a, b)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                         for w in rec if "synchroniz" in str(w.message)]
+                if counted:
+                    key = (bool(out.is_keyframe), bool(out.ba_success))
+                    per_kind.setdefault(name, {}).setdefault(
+                        key, set()).add(len(syncs))
+                    where.setdefault((name, key), syncs)
+        if name == "marg":
+            assert bool(state.marg_prior.valid)
+    assert per_kind["marg"].get((True, True))
+    for key, counts in per_kind["marg"].items():
+        if key in per_kind["default"]:
+            assert counts == per_kind["default"][key], (
+                key, per_kind, where[("default", key)], where[("marg", key)])
+
+
+@pytest.mark.gpu
+def test_f64_config_frame_through_cuda_kernel(dev):
+    """config/euroc_vo_dynamic.yaml with precision: f64 on the card: the
+    kernel runs (float32 inside), the step stays float64, and the frames
+    agree with the CPU's float64 run."""
+    cfg = config_mod.load_config(os.path.join(CONFIG_DIR,
+                                              "euroc_vo_dynamic.yaml"))
+    cfg.precision = "f64"
+    tex = bench_scene.make_texture(0)
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        ecfg, rig = config_mod.make_estimator_config(cfg, kind="vo", device=d)
+        step = est.make_estimator_step(ecfg)
+        state = est.init_state(ecfg, dtype=torch.float64, device=d)
+        rig32 = est.CameraRig(*(x.float() for x in rig))
+        kk.klt_bidir.launches = 0
+        outs[d.type] = []
+        for k in range(2):
+            a, b = bench_scene.render_rig(tex.to(d), rig32,
+                                          (ecfg.cam_kind_l, ecfg.cam_kind_r),
+                                          k, ecfg.image_shape)
+            state, out = step(state, rig, a.double(), b.double())
+            outs[d.type].append(out)
+        launches = kk.klt_bidir.launches
+        assert launches == (4 if d.type == "cuda" else 0)
+    for oc, og in zip(outs["cpu"], outs["cuda"]):
+        assert og.T_W_B.dtype == torch.float64
+        assert int(oc.n_tracked) == int(og.n_tracked)
+        assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 1e-3
+    assert int(outs["cuda"][-1].n_alive) >= 100
