@@ -90,9 +90,37 @@ them. Phases, each of which raises on failure:
                recorded (its last prior), H and g within 1e-4 of max|H|,
                and scene_flow_gate on tests/test_estimator.py's mover case
                (8 of 32 tracks displaced 0.03 a keyframe), equal kill sets.
+ 10. cli     — the dataset command lines in-process, on trees written
+               into a temporary directory from bench frames quantized to
+               uint8 (PNG rows cycling through all five filters):
+               "euroc": 66 stereo frames through config/euroc_vio.yaml's
+               rig at 752x480 as a mav0 tree (data.csv, an IMU csv, ground
+               truth from bench_scene.truth_position), run_euroc.main with
+               the shipped file unmodified and --trajectory-out, --eval-ate,
+               --viewer-dir, --checkpoint-out, --quiet. Requires rc 0, no
+               failed frame, 66 poses, the keyframe file's poses those of
+               the keyframes, exactly 2 K1 launches a frame, the main
+               path's floors, the trajectory within 1e-5 m / rad of the
+               step driven directly over the same uint8 frames, the ATE
+               <= 2 % of the path, statistics.txt, the PLY, the SVG and an
+               overlay PNG written, and the checkpoint reloaded plus one
+               step equal to the live state plus the same step. "tum" (30
+               frames of config/tum_vi.yaml, 512x512 EUCM, 16-bit PNGs) and
+               "4seasons" (30 frames of config/4seasons.yaml, 800x400,
+               times.txt, GNSSPoses.txt), each from a copy of its file with
+               the configs phase's printed keyframe override: rc 0, every
+               frame processed, 2 K1 launches a frame. "tartanair": 40 left
+               frames at 640x480 through run_tartanair.main with
+               config/tartanair.yaml: 39 K1 launches and the mono floors.
+               Each cli[...] line gives the CLI's mean ms a frame (upload,
+               step and its one read), the direct step's blocked median at
+               the same config in this call, and the decode ms per frame
+               on the prefetch thread.
 
 Every path phase sets the launch counts to 0 just before it and reads them
-just after. Drift is against the scene's truth, bench_scene.truth_position
+just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
+and cli_ab (the euroc CLI against the direct step, in turns) and prints no
+result line. Drift is against the scene's truth, bench_scene.truth_position
 (0.03 m a frame along the left camera's x axis). Prints the card's name and
 power limit, per-phase numbers, a JSON line {"kernels": [...]} and, as the
 last line, {"ok": true, "device": {...}}.
@@ -113,7 +141,11 @@ OPT_TIMED = 30
 CONFIGS = ("euroc_vio.yaml", "euroc_vo_dynamic.yaml", "euroc_vo_adaptive.yaml",
            "4seasons.yaml", "tum_vi.yaml")
 KF_TRANSLATION_M = 0.05   # the bench's keyframe translation threshold
+ROOT = os.path.dirname(os.path.abspath(__file__))
 MONO_FRAMES, MONO_WARMUP = 40, 10
+CLI_FRAMES = {"euroc": 66, "tum": 30, "4seasons": 30}
+CLI_TOL = 1e-5          # m and rad: the CLI's trajectory vs the direct step
+EUROC_T0 = 1_403_636_579_763_555_584   # ns, a EuRoC-like first stamp
 KERNEL_RUNS = 25
 SPIN_CYCLES = 2_000_000   # GPU spin ahead of each timed run (~1 ms)
 POS_TOL = 1e-3
@@ -131,7 +163,8 @@ REPLACES = {
 # NMS radius and cell size, detection_threshold 2.5 in the reference's
 # x1000 units -> 2.5 / 4000, optical_flow_max_iter 25,
 # optical_flow_lm_lambda 0.1), mapped as rsvio_tpu/cli/run_tartanair.py
-# maps them; that CLI's mapping is not ported, so they are written in.
+# maps them. The mono phase keeps them written in; the cli phase holds the
+# port's mapping (cli/run_tartanair.tracker_settings) to them.
 MONO = dict(levels=5, ratio=0.5, blur_sigma=2.0, radius=15,
             min_score=2.5 / 4000.0, max_iter=25, lm_lambda=0.1,
             capacity=256, shape=(480, 640), fx=320.0)
@@ -620,7 +653,7 @@ def rotation_phase(frames, dev):
     return c["klt_bidir_rot"]
 
 
-def mono_phase(tex, dev):
+def mono_phase(tex, dev, medians):
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
@@ -662,6 +695,7 @@ def mono_phase(tex, dev):
         ms[MONO_WARMUP:]), "tracked_mean": float(np.mean(
             [tracked[i] for i in q])), "kill_rate": kill,
          "alive_last": alive[-1], "launches": c}
+    medians["mono"] = s["ms_per_frame_median"]
     print("mono: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": MONO_FRAMES - 1, "klt_bidir_rot": 0,
                 "klt_level": 0},
@@ -679,8 +713,7 @@ def shipped_config(name, tex, dev, **solver):
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.utils import config as config_mod
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    cfg = config_mod.load_config(os.path.join(root, "config", name))
+    cfg = config_mod.load_config(os.path.join(ROOT, "config", name))
     for k, v in solver.items():
         check(hasattr(cfg.solver, k), f"{name}: no solver key {k}")
         setattr(cfg.solver, k, v)
@@ -711,9 +744,9 @@ def drift_key_of(ecfg):
     return "drift_rel_last_kf" if fixed_prior else "drift_rel"
 
 
-def configs_phase(tex, dev):
+def configs_phase(tex, dev, medians):
     """The shipped stereo VO configs end to end; returns the K1 launches of
-    all of them."""
+    all of them and puts each config's blocked median ms in `medians`."""
     import numpy as np
 
     total = 0
@@ -745,6 +778,7 @@ def configs_phase(tex, dev):
             line["ransac_ok_share_after_fill"] = float(
                 ransac_ok[full].mean())
         line["seconds"] = time.perf_counter() - t0
+        medians[name] = s["blocked_median_ms"]
         print(f"configs[{name}]: " + json.dumps(line), flush=True)
         check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
                     "klt_level": 0},
@@ -908,6 +942,345 @@ def flow_agreement(dev):
           "scene_flow_gate did not kill exactly the movers")
 
 
+def quantize(img):
+    """A rendered frame as the uint8 image a camera would record."""
+    import torch
+    return img.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def config_copy(name, tmp):
+    """The shipped config `name`, or, where its keyframe translation
+    threshold exceeds KF_TRANSLATION_M, a copy in `tmp` with the configs
+    phase's override written in. Returns (path, override or None)."""
+    from rsvio_tpu_torch.utils import config as config_mod
+
+    path = os.path.join(ROOT, "config", name)
+    thr = config_mod.load_config(path).keyframe_management \
+        .translation_threshold
+    if thr <= KF_TRANSLATION_M:
+        return path, None
+    with open(path) as f:
+        text, n = re.subn(r"(\n\s*translation_threshold:\s*)[0-9.eE+-]+",
+                          rf"\g<1>{KF_TRANSLATION_M}", f.read(), count=1)
+    check(n == 1, f"{name}: no translation_threshold line")
+    out = os.path.join(tmp, name)
+    with open(out, "w") as f:
+        f.write(text)
+    check(config_mod.load_config(out).keyframe_management
+          .translation_threshold == KF_TRANSLATION_M,
+          f"{name}: the override did not take")
+    return out, (f"keyframe_management.translation_threshold {thr} -> "
+                 f"{KF_TRANSLATION_M}")
+
+
+def cli_frames(tex, cfg_path, n, dev):
+    """(EstimatorConfig, rig, n uint8 stereo frames rendered through the
+    config's rig, (n, 3) truth positions)."""
+    import numpy as np
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.utils import config as config_mod
+
+    ecfg, rig = config_mod.make_estimator_config(
+        config_mod.load_config(cfg_path), kind="vo", device=dev)
+    kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
+    frames = [tuple(quantize(x) for x in bench_scene.render_rig(
+        tex, rig, kinds, k, ecfg.image_shape)) for k in range(n)]
+    truth = np.stack([bench_scene.truth_position(rig, k).double().cpu()
+                      .numpy() for k in range(n)])
+    return ecfg, rig, frames, truth
+
+
+def stamps(n):
+    return [EUROC_T0 + 50_000_000 * k for k in range(n)]
+
+
+def quat_angle(qa, qb):
+    """Angle (rad) between rotations given as quaternions, row by row."""
+    import numpy as np
+    qa = qa / np.linalg.norm(qa, axis=1, keepdims=True)
+    qb = qb / np.linalg.norm(qb, axis=1, keepdims=True)
+    d = np.minimum(np.linalg.norm(qa - qb, axis=1),
+                   np.linalg.norm(qa + qb, axis=1))
+    return 4.0 * np.arcsin(np.clip(d / 2.0, 0.0, 1.0))
+
+
+def ms_stats(res):
+    import numpy as np
+    return {"cli_ms_per_frame": res.avg_processing_time_ms,
+            "cli_ms_median": float(np.median(res.frame_processing_times_ms)),
+            "decode_ms_per_frame": float(np.mean(res.decode_times_ms)),
+            "n_failed": res.n_failed,
+            "frames": len(res.frame_processing_times_ms)}
+
+
+def direct_run(ecfg, rig, u8, dev):
+    """The step driven directly over uint8 frames (uploaded before each
+    frame's clock starts), blocked: (step, final state, poses, per-frame
+    [n_tracked, n_alive, ba_success, pose_ok, is_keyframe], ms a frame)."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.models import estimator as est
+
+    step = est.make_estimator_step(ecfg)
+    state = est.init_state(ecfg, device=dev)
+    poses, rec, step_ms = [], [], []
+    for a, b in u8:
+        a, b = (torch.from_numpy(x).to(dev).float() for x in (a, b))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, out = step(state, rig, a, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        poses.append(out.T_W_B.double().cpu().numpy())
+        rec.append([int(out.n_tracked), int(out.n_alive),
+                    int(out.ba_success), int(out.pose_ok),
+                    int(out.is_keyframe)])
+    return step, state, poses, np.array(rec), step_ms
+
+
+def cli_euroc(tex, dev, tmp):
+    """run_euroc on a mav0 tree of config/euroc_vio.yaml's frames, checked
+    against the step driven directly (module docstring, phase 10)."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.cli import run_euroc
+    from rsvio_tpu_torch.data import writers
+    from rsvio_tpu_torch.models import estimator as est
+    from rsvio_tpu_torch.utils import checkpoint, trajectory
+
+    n = CLI_FRAMES["euroc"]
+    cfg_path = os.path.join(ROOT, "config", "euroc_vio.yaml")
+    ecfg, rig, u8, truth = cli_frames(tex, cfg_path, n + 1, dev)
+    ts = stamps(n)
+    imu = np.array([[ts[0] + 5_000_000 * i, 0, 0, 0, 0, 0, 9.81]
+                    for i in range(10 * n)])
+    root = writers.write_euroc(os.path.join(tmp, "euroc"), u8[:n], ts,
+                               gt_positions=truth[:n], imu=imu)
+    traj, ckpt = os.path.join(tmp, "euroc.txt"), os.path.join(tmp, "s.ckpt")
+    vdir = os.path.join(tmp, "viz")
+    reset_counts()
+    rc = run_euroc.main([cfg_path, root, "--trajectory-out", traj,
+                         "--eval-ate", "--viewer-dir", vdir,
+                         "--checkpoint-out", ckpt, "--quiet"])
+    c = counts()
+    res = run_euroc.main.last_result
+    check(rc == 0 and res.n_failed == 0,
+          f"cli[euroc]: rc {rc}, failed frames {res.n_failed}")
+    check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+          f"cli[euroc]: launches {c} for {n} frames")
+
+    step, state, poses, rec, step_ms = direct_run(ecfg, rig, u8[:n], dev)
+
+    t_cli, pos_cli, q_cli = trajectory.load_tum(traj)
+    check(len(t_cli) == n, f"cli[euroc]: {len(t_cli)} poses, want {n}")
+    dpos = float(np.abs(pos_cli - np.stack([p[:3, 3] for p in poses])).max())
+    drot = float(quat_angle(q_cli, np.stack(
+        [trajectory.rot_to_quat_np(p[:3, :3]) for p in poses])).max())
+    check(dpos <= CLI_TOL and drot <= CLI_TOL,
+          f"cli[euroc]: trajectory vs direct step {dpos} m, {drot} rad")
+    kf_ts = trajectory.load_tum(traj.replace(".txt", "_keyframes.txt"))[0]
+    want_kf = np.asarray(ts, np.float64)[rec[:, 4] == 1] * 1e-9
+    check(len(kf_ts) == int(rec[:, 4].sum()) >= 1
+          and np.allclose(kf_ts, want_kf, atol=1e-6),
+          f"cli[euroc]: {len(kf_ts)} keyframe poses, want "
+          f"{int(rec[:, 4].sum())}")
+
+    # The main path's floors over the last QUAL frames of the same run.
+    q = range(n - QUAL, n)
+    drift = float(np.linalg.norm(poses[-1][:3, 3] - truth[n - 1])
+                  / np.linalg.norm(truth[n - 1]))
+    s = {"tracked_mean": float(rec[q, 0].mean()),
+         "bidir_kill_rate": float(np.mean(
+             [1.0 - rec[i, 0] / max(rec[i - 1, 1], 1) for i in q])),
+         "t_final": poses[-1][:3, 3].tolist(), "pose_ok": bool(
+             rec[q, 3].all()),
+         "ba_fires_in_quality_pass": int(rec[q, 2].sum()),
+         "drift_rel": drift}
+    check_floors("cli[euroc]", s)
+
+    with open(os.path.join(root, "statistics.txt")) as f:
+        stats = f.read()
+    m = re.search(r"ate_rmse_m: (\S+)", stats)
+    path_m = float(np.linalg.norm(np.diff(truth[:n], axis=0), axis=1).sum())
+    check(m is not None, "cli[euroc]: no ATE in statistics.txt")
+    ate = float(m.group(1))
+    check(ate <= 0.02 * path_m, f"cli[euroc]: ATE {ate} m > 2 % of "
+          f"{path_m} m")
+    frames_dir = os.path.join(vdir, "frames")
+    overlays = [f for f in os.listdir(frames_dir)
+                if f.startswith("stereo_left")]
+    check(os.path.exists(os.path.join(vdir, "map_points.ply"))
+          and os.path.exists(os.path.join(vdir, "trajectory.svg"))
+          and overlays, "cli[euroc]: viewer artifacts missing")
+
+    # The checkpoint plus one step vs the live state plus the same step.
+    a, b = (torch.from_numpy(x).to(dev).float() for x in u8[n])
+    live, _ = step(state, rig, a, b)
+    loaded = checkpoint.load_state(ckpt, est.init_state(ecfg, device=dev))
+    resumed, _ = step(loaded, rig, a, b)
+    worst = 0.0
+    for (name, x), (_, y) in zip(checkpoint.flatten(resumed),
+                                 checkpoint.flatten(live)):
+        if x.dtype.is_floating_point:
+            worst = max(worst, float((x - y).abs().max()
+                                     / max(1.0, float(y.abs().max())))
+                        if x.numel() else 0.0)
+        else:
+            check(torch.equal(x, y), f"cli[euroc]: resumed {name} differs")
+    check(worst <= CLI_TOL, f"cli[euroc]: resumed state differs by {worst}")
+
+    line = {**ms_stats(res), "direct_blocked_median_ms": statistics.median(
+        step_ms), "launches": c, "poses": int(len(t_cli)),
+        "keyframes": int(len(kf_ts)), "traj_vs_direct_m": dpos,
+        "traj_vs_direct_rad": drot, "ate_m": ate, "path_m": path_m,
+        "tracked_mean": s["tracked_mean"], "kill": s["bidir_kill_rate"],
+        "drift_rel": drift, "ba_fires": s["ba_fires_in_quality_pass"],
+        "overlays": len(overlays), "resume_max_rel_diff": worst}
+    print("cli[euroc]: " + json.dumps(line), flush=True)
+    return c["klt_bidir"]
+
+
+def cli_layout(name, tex, dev, tmp, medians):
+    """run_tum (16-bit PNGs, mav0) or run_4seasons (times.txt, GNSS) on
+    frames of that config's rig."""
+    from rsvio_tpu_torch.cli import run_4seasons, run_tum
+    from rsvio_tpu_torch.data import writers
+
+    n = CLI_FRAMES[name]
+    cfg_name = {"tum": "tum_vi.yaml", "4seasons": "4seasons.yaml"}[name]
+    cfg_path, override = config_copy(cfg_name, tmp)
+    ecfg, _, u8, truth = cli_frames(tex, cfg_path, n, dev)
+    root = os.path.join(tmp, name)
+    if name == "tum":
+        writers.write_euroc(root, u8, stamps(n), depth=16,
+                            gt_positions=truth)
+        main = run_tum.main
+    else:
+        writers.write_four_seasons(root, u8, stamps(n), gt_positions=truth)
+        main = run_4seasons.main
+    reset_counts()
+    rc = main([cfg_path, root, "--eval-ate", "--quiet"])
+    c = counts()
+    res = main.last_result
+    line = {**ms_stats(res), "configs_blocked_median_ms": medians.get(
+        cfg_name), "launches": c, "image_shape": list(ecfg.image_shape),
+        "camera": ecfg.cam_kind_l, "override": override}
+    print(f"cli[{name}]: " + json.dumps(line), flush=True)
+    check(rc == 0 and res.n_failed == 0 and line["frames"] == n,
+          f"cli[{name}]: rc {rc}, {line['frames']} of {n} frames, "
+          f"{res.n_failed} failed")
+    check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+          f"cli[{name}]: launches {c} for {n} frames")
+    return c["klt_bidir"]
+
+
+def cli_tartanair(tex, dev, tmp, medians):
+    """run_tartanair with config/tartanair.yaml on 640x480 left frames."""
+    import numpy as np
+    from rsvio_tpu_torch.cli import run_tartanair
+    from rsvio_tpu_torch.data import bench_scene, writers
+
+    m = MONO
+    cfg_path = os.path.join(ROOT, "config", "tartanair.yaml")
+    cfg, _ = run_tartanair.tracker_settings(cfg_path)
+    check((cfg.klt.levels, cfg.klt.pyramid_ratio, cfg.nms_radius,
+           cfg.min_score, cfg.klt.max_iterations, cfg.klt.lm_lambda)
+          == (m["levels"], m["ratio"], m["radius"], m["min_score"],
+              m["max_iter"], m["lm_lambda"]),
+          f"cli[tartanair]: the CLI maps tartanair.yaml to {cfg}")
+    imgs = [quantize(bench_scene.render(tex, bench_scene.STEP_M * k,
+                                        shape=m["shape"], fx=m["fx"]))
+            for k in range(MONO_FRAMES)]
+    root = writers.write_tartanair(os.path.join(tmp, "tartanair"), imgs)
+    reset_counts()
+    rc = run_tartanair.main([root, "--config", cfg_path, "--quiet"])
+    c = counts()
+    res = run_tartanair.main.last_result
+    q = range(MONO_WARMUP, MONO_FRAMES)
+    kill = float(np.mean([1.0 - res.tracked[i] / max(res.alive[i - 1], 1)
+                          for i in q]))
+    line = {**ms_stats(res), "mono_phase_blocked_median_ms": medians.get(
+        "mono"), "launches": c, "tracked_mean": float(np.mean(
+            [res.tracked[i] for i in q])), "kill_rate": kill}
+    print("cli[tartanair]: " + json.dumps(line), flush=True)
+    check(rc == 0 and line["frames"] == MONO_FRAMES,
+          f"cli[tartanair]: rc {rc}, {line['frames']} frames")
+    check(c == {"klt_bidir": MONO_FRAMES - 1, "klt_bidir_rot": 0,
+                "klt_level": 0},
+          f"cli[tartanair]: launches {c} for {MONO_FRAMES} frames")
+    check(line["tracked_mean"] >= 80.0, "cli[tartanair]: tracked_mean < 80")
+    check(kill <= 0.3, f"cli[tartanair]: kill rate {kill} > 0.3")
+    return c["klt_bidir"]
+
+
+def cli_ab(tex, dev):
+    """`--cli-ab`: the euroc CLI run's ms a frame against the direct step,
+    in turns in one process (direct, cli, cli on frames decoded before the
+    run, then again), on the cli phase's euroc frames without the viewer:
+    whether the decode thread or the CLI's loop costs the step anything."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from rsvio_tpu_torch.cli import run_euroc
+    from rsvio_tpu_torch.data import players, writers
+
+    n = CLI_FRAMES["euroc"]
+    cfg_path = os.path.join(ROOT, "config", "euroc_vio.yaml")
+    ecfg, rig, u8, truth = cli_frames(tex, cfg_path, n, dev)
+    tmp = tempfile.mkdtemp(prefix="rsvio_ab_")
+    root = writers.write_euroc(os.path.join(tmp, "euroc"), u8, stamps(n),
+                               gt_positions=truth)
+    load = players._StereoPlayer.load_frame
+    decoded = {}
+
+    def load_decoded(self, i, as_uint8=False):
+        f = decoded[i]
+        return players.FrameData(f.timestamp_ns, f.left, f.right)
+
+    p = players.EurocPlayer(root)
+    for i in range(n):
+        decoded[i] = load(p, i, as_uint8=True)
+    try:
+        for k, kind in enumerate(("direct", "cli", "cli_decoded") * 2):
+            if kind == "direct":
+                ms, dec = direct_run(ecfg, rig, u8, dev)[4], []
+            else:
+                if kind == "cli_decoded":
+                    players._StereoPlayer.load_frame = load_decoded
+                try:
+                    check(run_euroc.main([cfg_path, root, "--quiet"]) == 0,
+                          "cli-ab: the CLI failed")
+                finally:
+                    players._StereoPlayer.load_frame = load
+                res = run_euroc.main.last_result
+                ms, dec = res.frame_processing_times_ms, res.decode_times_ms
+            print(f"cli_ab[{k}:{kind}]: " + json.dumps({
+                "median_ms": statistics.median(ms),
+                "mean_ms": float(np.mean(ms)),
+                "decode_ms_per_frame": float(np.mean(dec)) if dec else None,
+                "frames": len(ms)}), flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_phase(tex, dev, medians):
+    """The dataset command lines (module docstring, phase 10); returns
+    their K1 launches."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="rsvio_cli_")
+    try:
+        total = cli_euroc(tex, dev, tmp)
+        for name in ("tum", "4seasons"):
+            total += cli_layout(name, tex, dev, tmp, medians)
+        total += cli_tartanair(tex, dev, tmp, medians)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def kernel_entry(name, launches, rows, extra=None):
     r0 = rows[0]
     e = {"name": name, "route": "cuda", "source": SOURCE,
@@ -961,6 +1334,10 @@ def main():
     print(f"render: {n} stereo frames in {time.perf_counter() - t0:.2f}s",
           flush=True)
 
+    if "--cli-ab" in sys.argv[1:]:
+        cli_ab(tex, dev)
+        return 0
+
     seconds = {}
 
     def phase(name, fn, *args):
@@ -975,9 +1352,11 @@ def main():
                            rolled, dev)
     launches = phase("main", main_phase, frames, dev)
     rot_launches = phase("rotation", rotation_phase, frames, dev)
-    mono_launches = phase("mono", mono_phase, tex, dev)
-    config_launches = phase("configs", configs_phase, tex, dev)
+    medians = {}
+    mono_launches = phase("mono", mono_phase, tex, dev, medians)
+    config_launches = phase("configs", configs_phase, tex, dev, medians)
     option_launches = phase("options", options_phase, tex, frames, dev)
+    cli_launches = phase("cli", cli_phase, tex, dev, medians)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
@@ -989,7 +1368,8 @@ def main():
                                    "bound_ms", "max_chain", "ns_per_link")},
                       "launches_mono": mono_launches,
                       "launches_configs": config_launches,
-                      "launches_options": option_launches}),
+                      "launches_options": option_launches,
+                      "launches_cli": cli_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],

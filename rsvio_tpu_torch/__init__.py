@@ -15,7 +15,12 @@ KLT route with ``ops.interp`` bilinear / bicubic sampling, the ratio
 pyramid, Shi-Tomasi and NMS detection, ``models.mono_tracker``), the
 shipped VO configs (``utils.config``) and every VO estimator option,
 window marginalization (``models.marginalization``,
-``models.ba.solve_ba_marginalized``) among them. Both TPU
+``models.ba.solve_ba_marginalized``) among them, and the dataset command
+lines (``cli.run_euroc``, ``run_tum``, ``run_4seasons``, ``run_tartanair``
+with ``cli.run`` / ``cli.playback``, the players and OpenCV-free PNG reader
+of ``data.players`` / ``data.png``, ``utils.trajectory``,
+``utils.checkpoint``, ``utils.observer``, ``profiling`` and the artifact
+viewer of ``viewers``). Both TPU
 kernels of the JAX package have hand-written Hopper counterparts in
 ``ops.cuda.klt_kernel`` (source in ``csrc/``): the fused bidirectional KLT
 ``klt_bidir`` (translation and rotation) and the per-level ``klt_level``.

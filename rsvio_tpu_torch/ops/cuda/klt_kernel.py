@@ -40,6 +40,8 @@ import functools
 import numpy as np
 import torch
 
+from .build import KernelError
+
 PATCH = 16
 MARGIN = 2.0      # center-validity margin in px
 MAX_LEVELS = 8
@@ -203,7 +205,7 @@ def klt_bidir(src, dst, dims, pos, alive, cam, *, max_iterations: int = 20,
             float(lm_lambda), int(bool(coarse_tolerant)),
             int(bool(with_rotation)), stream)
     if rc != 0:
-        raise RuntimeError(f"klt_bidir launch failed with code {rc}")
+        raise KernelError(f"klt_bidir launch failed with code {rc}")
     if with_rotation:
         klt_bidir.rot_launches += 1
     else:
@@ -276,7 +278,7 @@ def klt_level(src, dst, pos_src, pos_dst0, theta0, alive, cam, *,
             int(residual_mode == "ssd"), float(lm_lambda),
             int(bool(with_rotation)), stream)
     if rc != 0:
-        raise RuntimeError(f"klt_level launch failed with code {rc}")
+        raise KernelError(f"klt_level launch failed with code {rc}")
     klt_level.launches += 1
     return out_pos, out_theta, out_ok
 

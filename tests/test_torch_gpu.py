@@ -34,6 +34,13 @@ against the CPU, the marginalized step making as many host syncs per frame
 as the default step (``torch.cuda.set_sync_debug_mode("warn")``), and one
 ``precision: f64`` config frame through the CUDA kernel (float32 inside
 the kernel, float64 around it).
+
+The command line: run_euroc on a tiny tree on the card against
+``--device cpu`` (the whole-step tolerance, 2 K1 launches a frame), a CLI
+frame making exactly one host sync beyond the step's own (the batched read;
+the pinned upload adds none), the PNG reader's C++ unfilter built and held
+to its numpy version wherever the file runs (this test needs no card), and
+the checkpoint round trip on CUDA.
 """
 
 import glob
@@ -840,3 +847,169 @@ def test_f64_config_frame_through_cuda_kernel(dev):
         assert int(oc.n_tracked) == int(og.n_tracked)
         assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 1e-3
     assert int(outs["cuda"][-1].n_alive) >= 100
+
+
+# ---------------------------------------------------------------- the CLI
+
+CLI_SHAPE = (96, 128)
+
+
+def _cli_tree(root, n):
+    """The small scene as a mini EuRoC tree (uint8 PNGs written by
+    data.png) with a config of the same rig and frontend as _small_scene."""
+    from rsvio_tpu_torch.data import writers
+
+    _, frames, shape = _small_scene(n)
+    h, w = shape
+    u8 = [tuple(f.round().clamp(0, 255).to(torch.uint8).numpy()
+                for f in pair) for pair in frames]
+    stamps = [1_403_636_579_763_555_584 + 50_000_000 * k for k in range(n)]
+    writers.write_euroc(str(root), u8, stamps)
+    cfg = root / "config.yaml"
+    cfg.write_text(f"""camera:
+  image_width: {w}
+  image_height: {h}
+  left_intrinsics: [100.0, 100.0, {w / 2}, {h / 2}]
+  left_distortion: [0.0, 0.0, 0.0, 0.0]
+  right_intrinsics: [100.0, 100.0, {w / 2}, {h / 2}]
+  right_distortion: [0.0, 0.0, 0.0, 0.0]
+  T_B_Cl: [1,0,0,0, 0,1,0,0, 0,0,1,0, 0,0,0,1]
+  T_B_Cr: [1,0,0,0.11, 0,1,0,0, 0,0,1,0, 0,0,0,1]
+keyframe_management:
+  keyframe_window_size: 4
+feature_detection:
+  grid_size: 24
+  optical_flow_max_iterations: 8
+tracker:
+  pyramid_levels: 3
+  feature_capacity: 32
+  detect_margin: 10
+""")
+    return str(root), str(cfg), u8
+
+
+def _count_syncs(fn):
+    """(result of fn(), the host syncs torch's sync debug mode reported
+    while it ran, as file:line). Nests: an inner count takes its syncs out
+    of the outer one."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in rec if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.gpu
+def test_cli_on_cuda_matches_cpu(dev, tmp_path):
+    """run_euroc on the card (kernel route) against --device cpu (plain
+    versions): poses within the whole-step tolerance, 2 K1 launches a
+    frame."""
+    from rsvio_tpu_torch.cli import run_euroc
+    from rsvio_tpu_torch.utils import trajectory
+
+    root, cfg, _ = _cli_tree(tmp_path / "tree", 10)
+    pos = {}
+    for d in ("cpu", "cuda"):
+        traj = str(tmp_path / f"{d}.txt")
+        kk.klt_bidir.launches = 0
+        assert run_euroc.main([cfg, root, "--device", d, "--quiet",
+                               "--trajectory-out", traj]) == 0
+        res = run_euroc.main.last_result
+        assert res.n_failed == 0 and len(res.frame_processing_times_ms) == 10
+        assert kk.klt_bidir.launches == (20 if d == "cuda" else 0)
+        pos[d] = trajectory.load_tum(traj)[1]
+    assert float(np.abs(pos["cuda"] - pos["cpu"]).max()) <= 1e-3
+    assert float(pos["cuda"][-1, 0]) > 0.05
+
+
+@pytest.mark.gpu
+def test_cli_frame_adds_one_host_sync(dev, tmp_path, monkeypatch):
+    """A CLI frame on the card makes exactly one host sync beyond the
+    step's own: the batched read of the frame's outputs (cli/run.fetch).
+    Frames arrive in pinned memory, so the upload adds none. The step's
+    syncs are counted apart (a wrapper around each step call takes them
+    out), and the CLI's own syncs of runs of 5 and 3 frames differ by
+    exactly two, both at the read (setup and teardown cancel out)."""
+    from collections import Counter
+
+    from rsvio_tpu_torch.cli import run_euroc
+
+    root, cfg, _ = _cli_tree(tmp_path / "tree", 5)
+    make_step = est.make_estimator_step
+    step_syncs = []
+
+    def counted_step(ecfg, **kw):
+        step = make_step(ecfg, **kw)
+
+        def f(*args):
+            out, syncs = _count_syncs(lambda: step(*args))
+            step_syncs.append(len(syncs))
+            return out
+        return f
+
+    monkeypatch.setattr(est, "make_estimator_step", counted_step)
+
+    def cli(n):
+        return run_euroc.main([cfg, root, "--quiet", "--max-frames",
+                               str(n)])
+
+    assert cli(5) == 0           # warm-up: builds, first-use allocations
+    own = {}
+    for n in (3, 5):
+        step_syncs.clear()
+        rc, own[n] = _count_syncs(lambda: cli(n))
+        assert rc == 0 and len(step_syncs) == n and min(step_syncs) > 0
+    added = Counter(own[5])
+    added.subtract(Counter(own[3]))
+    added = {k: v for k, v in added.items() if v}
+    assert list(added.values()) == [2] and \
+        next(iter(added)).startswith("run.py:"), (added, own[3], own[5])
+
+
+def test_png_round_trip_builds_the_unfilter(tmp_path):
+    """write_png -> read_gray with every filter, 8 / 16 bits, gray and
+    RGB: builds the C++ unfilter with the host compiler wherever this runs
+    and holds it to the numpy version."""
+    from rsvio_tpu_torch.data import png
+
+    rng = np.random.default_rng(0)
+    for shape, dtype in (((31, 45), np.uint8), ((31, 45), np.uint16),
+                         ((31, 45, 3), np.uint8)):
+        img = rng.integers(0, np.iinfo(dtype).max + 1, shape, dtype=dtype)
+        for filters in (0, 1, 2, 3, 4, png.cycle_filters(31)):
+            path = str(tmp_path / "x.png")
+            png.write_png(path, img, filters=filters)
+            np.testing.assert_array_equal(png.read_png(path), img)
+            np.testing.assert_array_equal(
+                png.read_png(path, png.unfilter_numpy), img)
+            gray = png.read_gray(path)
+            assert gray.dtype == np.float32 and gray.shape == shape[:2]
+            if dtype == np.uint16:
+                np.testing.assert_array_equal(gray, (img >> 8).astype(
+                    np.float32))
+    assert png.load_library().path.endswith(".so")
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    from rsvio_tpu_torch.utils import checkpoint
+
+    cfg, frames, shape = _small_scene(4)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    step = est.make_estimator_step(cfg)
+    state = est.init_state(cfg, device=dev)
+    for a, b in frames:
+        state, _ = step(state, rig, a.to(dev), b.to(dev))
+    path = str(tmp_path / "s.ckpt")
+    checkpoint.save_state(path, state)
+    for d in (dev, torch.device("cpu")):
+        back = checkpoint.load_state(path, est.init_state(cfg, device=d))
+        for (n, x), (_, y) in zip(checkpoint.flatten(back),
+                                  checkpoint.flatten(state)):
+            assert x.device.type == d.type, n
+            assert torch.equal(x.cpu(), y.cpu()), n
