@@ -90,7 +90,39 @@ them. Phases, each of which raises on failure:
                recorded (its last prior), H and g within 1e-4 of max|H|,
                and scene_flow_gate on tests/test_estimator.py's mover case
                (8 of 32 tracks displaced 0.03 a keyframe), equal kill sets.
- 10. cli     — the dataset command lines in-process, on trees written
+ 10. vio     — the VIO estimator (models/estimator_vio) at full width,
+               three runs of 6 warm-up, 30 timed and 20 blocked frames and
+               10 split frames, each on an IMU stream built on the host: a
+               0.5 s static head at the start pose (fed to
+               quasi_static_check and initialize_vio_state), then the
+               motion at 200 Hz with constant biases (gyro 0.003 / -0.002
+               / 0.004 rad/s, accel 0.02 / -0.015 / 0.01 m/s^2, the
+               accuracy matrix's --imu-noise values) and white noise at the
+               config's densities from a seeded numpy generator, bucketed
+               per frame as the CLI does and uploaded by the step as one
+               pinned copy a frame. "euroc_vio+vio": config/euroc_vio.yaml
+               unmodified through make_estimator_config(kind="vio"),
+               make_imu_params and the CLI's VIOBAConfig mapping, on the
+               bench plane through the file's rig (render_rig) at 20 Hz;
+               "depth_6dof+vio": data/synthetic's depth-structured scene
+               flown on traj_6dof at 20 Hz, euroc_vio.yaml with its camera
+               section replaced by the scene's pinhole rig (printed);
+               "depth_6dof+vio+marg": the same with
+               solver.marginalization true. Each is held to the stereo
+               floors (drift: the last frame's position error over the
+               path length so far, the main path's drift on the straight
+               bench path) — but depth_6dof+vio's drift is printed, not
+               held: the JAX step on its Pallas KLT route misses the 2 %
+               on the same frames and IMU as the port does (2.37 % and
+               2.40 % on the CPU; 0.35 % on its gather route, whose tracks
+               differ by design; tools/compare_vo_trajectories.py --vio)
+               —, the last frame's velocity within 0.1 m/s,
+               exactly 2 K1 launches a frame, and the marg run to at least
+               one prior made; it prints frames/s, the blocked median, the
+               SE3-aligned ATE, the final biases beside the truth, and its
+               keyframes' split (the ms of the step, of preintegrate and of
+               the window solve).
+ 11. cli     — the dataset command lines in-process, on trees written
                into a temporary directory from bench frames quantized to
                uint8 (PNG rows cycling through all five filters):
                "euroc": 66 stereo frames through config/euroc_vio.yaml's
@@ -109,7 +141,12 @@ them. Phases, each of which raises on failure:
                "4seasons" (30 frames of config/4seasons.yaml, 800x400,
                times.txt, GNSSPoses.txt), each from a copy of its file with
                the configs phase's printed keyframe override: rc 0, every
-               frame processed, 2 K1 launches a frame. "tartanair": 40 left
+               frame processed, 2 K1 launches a frame. "euroc --vio": the
+               euroc tree's IMU csv holds the euroc_vio+vio run's stream;
+               run_euroc --vio on it, held to the VIO step driven directly
+               on the same decoded frames and IMU buffers from the same
+               bootstrap (within 1e-5 m / rad), 2 K1 launches a frame, the
+               ATE printed. "tartanair": 40 left
                frames at 640x480 through run_tartanair.main with
                config/tartanair.yaml: 39 K1 launches and the mono floors.
                Each cli[...] line gives the CLI's mean ms a frame (upload,
@@ -146,6 +183,17 @@ MONO_FRAMES, MONO_WARMUP = 40, 10
 CLI_FRAMES = {"euroc": 66, "tum": 30, "4seasons": 30}
 CLI_TOL = 1e-5          # m and rad: the CLI's trajectory vs the direct step
 EUROC_T0 = 1_403_636_579_763_555_584   # ns, a EuRoC-like first stamp
+VIO_TIMED = 30
+VIO_FPS = 20.0
+IMU_HZ = 200.0
+VIO_SEED = 8
+# Constant IMU biases of the vio runs (tools/accuracy_matrix.py --imu-noise).
+VIO_BIAS_G = [0.003, -0.002, 0.004]      # rad/s
+VIO_BIAS_A = [0.02, -0.015, 0.01]        # m/s^2
+VIO_VEL_TOL = 0.1       # m/s, the last frame's velocity error
+# vio runs whose drift floor the JAX step misses on the same frames (its
+# Pallas KLT route, tools/compare_vo_trajectories.py --vio RUN --jax-pallas).
+VIO_DRIFT_UNHELD = ("depth_6dof+vio",)
 KERNEL_RUNS = 25
 SPIN_CYCLES = 2_000_000   # GPU spin ahead of each timed run (~1 ms)
 POS_TOL = 1e-3
@@ -942,6 +990,285 @@ def flow_agreement(dev):
           "scene_flow_gate did not kill exactly the movers")
 
 
+def vio_imu_stream(traj, n_frames, imu_params, seed=VIO_SEED,
+                   t0_ns=EUROC_T0):
+    """The host IMU stream of a VIO run: a 0.5 s static head at traj's
+    start pose (the hold-still bootstrap of rsvio_tpu/utils/evaluation.py's
+    static_init_imu) and the motion over frames 0..n_frames-1 at VIO_FPS,
+    200 Hz, with the constant biases VIO_BIAS_G / VIO_BIAS_A and white noise
+    at the config's densities from a seeded numpy generator. Returns
+    {"ts" (ns, int64), "gyro", "accel"} and the head's sample count."""
+    import numpy as np
+    from rsvio_tpu_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    kw = dict(rate=IMU_HZ, gyro_bias=VIO_BIAS_G, accel_bias=VIO_BIAS_A,
+              noise_rng=rng, gyro_noise=imu_params.gyro_noise,
+              accel_noise=imu_params.accel_noise)
+    hover = synthetic.Trajectory(pos_fn=lambda t: traj.pos_fn(0.0),
+                                 ang_fn=lambda t: traj.ang_fn(0.0), R0=traj.R0)
+    ts_h, g_h, a_h, _ = hover.sample_imu(-0.5, 0.0, **kw)
+    ts_m, g_m, a_m, _ = traj.sample_imu(0.0, (n_frames - 1) / VIO_FPS, **kw)
+    ts = np.concatenate([ts_h, ts_m])
+    return ({"ts": t0_ns + np.round(ts * 1e9).astype(np.int64),
+             "gyro": np.concatenate([g_h, g_m]),
+             "accel": np.concatenate([a_h, a_m])}, len(ts_h))
+
+
+def vio_imu_inputs(traj, n, imu_params):
+    """(stream, head count, frame stamps (ns), per-frame host IMU buffers
+    as the CLI builds them: the samples in (previous stamp, stamp])."""
+    from rsvio_tpu_torch.cli import run as cli_run
+
+    imu, n_head = vio_imu_stream(traj, n, imu_params)
+    stamps_ns = [EUROC_T0 + int(round(k / VIO_FPS * 1e9)) for k in range(n)]
+    bufs = [cli_run._imu_buffer_for_frame(
+        imu, stamps_ns[k - 1] if k else None, stamps_ns[k])
+        for k in range(n)]
+    return imu, n_head, stamps_ns, bufs
+
+
+def bench_trajectory(rig):
+    """The bench plane's motion (bench_scene.truth_position: STEP_M a frame
+    along the left camera's x axis, body attitude fixed) as a synthetic
+    Trajectory at VIO_FPS, level in a z-up world."""
+    import numpy as np
+    from rsvio_tpu_torch.data import bench_scene, synthetic
+
+    ex = rig.T_B_C[0, :3, 0].double().cpu().numpy()
+    speed = bench_scene.STEP_M * VIO_FPS
+    return synthetic.Trajectory(pos_fn=lambda t: speed * t * ex,
+                                ang_fn=lambda t: np.zeros(3),
+                                R0=np.eye(3))
+
+
+def vio_runs(tex, dev):
+    """name -> builder of (VIOEstimatorConfig, rig, frames (device
+    tensors), Trajectory, override or None) for the vio phase's runs."""
+    import numpy as np
+    from rsvio_tpu_torch.cli import run as cli_run
+    from rsvio_tpu_torch.data import bench_scene, synthetic
+    from rsvio_tpu_torch.utils import config as config_mod
+
+    n = WARMUP + VIO_TIMED + QUAL + SPLIT
+
+    def euroc():
+        cfg = config_mod.load_config(os.path.join(ROOT, "config",
+                                                  "euroc_vio.yaml"))
+        ecfg, rig = config_mod.make_estimator_config(cfg, kind="vio",
+                                                     device=dev)
+        kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
+        frames = [bench_scene.render_rig(tex, rig, kinds, k,
+                                         ecfg.image_shape) for k in range(n)]
+        return (cli_run.vio_config(cfg, ecfg), rig, frames,
+                bench_trajectory(rig), None)
+
+    def depth(marginalization):
+        def build():
+            cfg = config_mod.load_config(os.path.join(ROOT, "config",
+                                                      "euroc_vio.yaml"))
+            scene = synthetic.scene_depth_structured(device=dev)
+            cam = cfg.camera
+            cam.left_intrinsics = cam.right_intrinsics = [
+                scene.fx, scene.fy, scene.cx, scene.cy]
+            cam.left_distortion = cam.right_distortion = [0.0] * 4
+            cam.T_B_Cl = np.eye(4).ravel().tolist()
+            T_r = np.eye(4)
+            T_r[0, 3] = scene.baseline
+            cam.T_B_Cr = T_r.ravel().tolist()
+            override = (f"camera -> the scene's pinhole rig (fx=fy="
+                        f"{scene.fx}, cx={scene.cx}, cy={scene.cy}, no "
+                        f"distortion, T_B_Cl = I, baseline {scene.baseline})")
+            if marginalization:
+                cfg.solver.marginalization = True
+                override += ", solver.marginalization true"
+            ecfg, rig = config_mod.make_estimator_config(cfg, kind="vio",
+                                                         device=dev)
+            traj = synthetic.traj_6dof()
+            frames = [synthetic.render_stereo(scene, traj.pose(k / VIO_FPS),
+                                              k / VIO_FPS)
+                      for k in range(n)]
+            return cli_run.vio_config(cfg, ecfg), rig, frames, traj, override
+        return build
+
+    return {"euroc_vio+vio": euroc, "depth_6dof+vio": depth(False),
+            "depth_6dof+vio+marg": depth(True)}
+
+
+def vio_velocity(traj, t, h=1e-5):
+    return (traj.pos_fn(t + h) - traj.pos_fn(t - h)) / (2 * h)
+
+
+def run_vio(vcfg, rig, frames, traj, dev, probe=None):
+    """A VIO run: warm-up, timed and blocked quality frames on the frames'
+    IMU buffers (built on the host beforehand as the CLI builds them, and
+    uploaded by the step as one pinned copy a frame), from the
+    gravity-aligned bootstrap on the stream's static head; then SPLIT
+    frames with preintegrate and the window solve timed apart (a sync
+    before and after each call). Returns (summary dict, launch counts of
+    every frame)."""
+    import torch
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    n = len(frames)
+    n_main = WARMUP + VIO_TIMED + QUAL
+    imu, n_head, stamps_ns, bufs = vio_imu_inputs(traj, n, vcfg.imu_params)
+    ok, info = ev.quasi_static_check(imu["gyro"][:n_head],
+                                     imu["accel"][:n_head])
+    check(ok, f"vio: the static head is not quasi-static: {info}")
+    state = ev.initialize_vio_state(vcfg, imu["gyro"][:n_head],
+                                    imu["accel"][:n_head], device=dev)
+    step = ev.make_vio_estimator_step(vcfg, probe=probe)
+    rec, step_ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for k in range(n_main):
+        if k == WARMUP:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        if k == WARMUP + VIO_TIMED:
+            torch.cuda.synchronize()
+            fps = VIO_TIMED / (time.perf_counter() - t_timed)
+        t1 = time.perf_counter()
+        state, out = step(state, rig, *frames[k], *bufs[k])
+        if k >= WARMUP + VIO_TIMED:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        rec.append(torch.cat([out.T_W_B[:3, 3].double(), torch.stack([
+            out.n_tracked.double(), out.n_alive.double(),
+            out.ba_success.double(), out.pose_ok.double(),
+            out.is_keyframe.double()])]))
+    s = {"frames_per_s": fps, "blocked_median_ms": statistics.median(step_ms),
+         **vio_metrics(torch.stack(rec).cpu().numpy(), traj,
+                       state.vel.double().cpu().numpy(),
+                       vcfg.base.window_size),
+         "bias_gyro": state.bg.double().cpu().numpy().tolist(),
+         "bias_accel": state.ba.double().cpu().numpy().tolist(),
+         "bias_truth": [VIO_BIAS_G, VIO_BIAS_A],
+         "marg_prior_valid": bool(state.marg_prior.valid)}
+    s["split"] = vio_split(step, state, rig, frames[n_main:], bufs[n_main:])
+    c = counts()
+    s.update(launches=c, frames_all=n)
+    return s, c
+
+
+def vio_split(step, state, rig, frames, bufs):
+    """Keyframes of `frames` split: the step's ms, and the ms of its
+    preintegrate calls (the frame's samples and the interval's) and of its
+    window solve, each call synchronized before and after."""
+    import torch
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    spent = {"preintegrate": 0.0, "solve": 0.0}
+
+    def timed(fn, key):
+        def f(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += (time.perf_counter() - t) * 1e3
+            return out
+        return f
+
+    saved = (ev.imu_mod.preintegrate, ev.vio_ba.solve_vio_ba,
+             ev.vio_ba.solve_vio_ba_marginalized)
+    ev.imu_mod.preintegrate = timed(saved[0], "preintegrate")
+    ev.vio_ba.solve_vio_ba = timed(saved[1], "solve")
+    ev.vio_ba.solve_vio_ba_marginalized = timed(saved[2], "solve")
+    kf = {"frame_ms": [], "preintegrate_ms": [], "solve_ms": []}
+    other = []
+    try:
+        for (a, b), buf in zip(frames, bufs):
+            spent.update(preintegrate=0.0, solve=0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, out = step(state, rig, a, b, *buf)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if bool(out.is_keyframe):
+                kf["frame_ms"].append(ms)
+                kf["preintegrate_ms"].append(spent["preintegrate"])
+                kf["solve_ms"].append(spent["solve"])
+            else:
+                other.append((ms, spent["preintegrate"]))
+    finally:
+        (ev.imu_mod.preintegrate, ev.vio_ba.solve_vio_ba,
+         ev.vio_ba.solve_vio_ba_marginalized) = saved
+    out = {"keyframes": len(kf["frame_ms"]),
+           **{f"kf_{k}_median": statistics.median(v) if v else None
+              for k, v in kf.items()}}
+    if other:
+        out["non_kf_frame_ms_median"] = statistics.median(
+            [m for m, _ in other])
+        out["non_kf_preintegrate_ms_median"] = statistics.median(
+            [p for _, p in other])
+    return out
+
+
+def vio_metrics(r, traj, v_est, window):
+    """The floors' numbers of a VIO run from its per-frame records r (n, 8):
+    position (3), n_tracked, n_alive, ba_success, pose_ok, is_keyframe.
+    Drift is the last frame's position error over the path length so far
+    (on the bench plane's straight path, the main path's definition); the
+    ATE is SE3-aligned over every frame and over the frames after the
+    window filled."""
+    import numpy as np
+    from rsvio_tpu_torch.utils import trajectory
+
+    n = len(r)
+    truth = np.stack([traj.pose(k / VIO_FPS)[:3, 3] for k in range(n)])
+    path = float(np.linalg.norm(np.diff(truth, axis=0), axis=1).sum())
+    pos = r[:, :3]
+    q = range(n - QUAL, n)
+    kill = float(np.mean([1.0 - r[i, 3] / max(r[i - 1, 4], 1) for i in q]))
+    v_true = vio_velocity(traj, (n - 1) / VIO_FPS)
+    kf = np.cumsum(r[:, 7])
+    skip = int(np.nonzero(kf >= window)[0][0]) + 1 if kf[-1] >= window \
+        else n // 3
+    return {"tracked_mean": float(r[q, 3].mean()), "bidir_kill_rate": kill,
+            "t_final": pos[-1].tolist(), "t_truth": truth[-1].tolist(),
+            "drift_rel": float(np.linalg.norm(pos[-1] - truth[-1]) / path),
+            "path_m": path, "ba_fires_in_quality_pass": int(r[q, 5].sum()),
+            "pose_ok": bool(r[:, 6].all()),
+            "vel_err": float(np.linalg.norm(v_est - v_true)),
+            "vel": np.asarray(v_est).tolist(), "vel_truth": v_true.tolist(),
+            "ate_m": float(trajectory.ate_rmse(pos, truth)[0]),
+            "ate_post_fill_m": float(trajectory.ate_rmse(pos[skip:],
+                                                          truth[skip:])[0]),
+            "keyframes": int(kf[-1]), "frames": n}
+
+
+def vio_phase(tex, dev):
+    """The VIO estimator end to end (module docstring, phase 10); returns
+    the K1 launches of its runs."""
+    total = 0
+    for name, build in vio_runs(tex, dev).items():
+        t0 = time.perf_counter()
+        vcfg, rig, frames, traj, override = build()
+        probe = {}
+        s, c = run_vio(vcfg, rig, frames, traj, dev, probe=probe)
+        s["probe"] = {k: int(v) for k, v in probe.items()}
+        s["override"] = override
+        s["seconds"] = time.perf_counter() - t0
+        print(f"vio[{name}]: " + json.dumps(s), flush=True)
+        check(c == {"klt_bidir": 2 * s["frames_all"], "klt_bidir_rot": 0,
+                    "klt_level": 0},
+              f"vio[{name}]: launches {c} for {s['frames_all']} frames")
+        # A floor the JAX step misses on the same frames is printed, not
+        # held (module docstring, phase 10).
+        s["drift_checked"] = None if name in VIO_DRIFT_UNHELD else "drift_rel"
+        check_floors(f"vio[{name}]", s, s["drift_checked"])
+        check(s["vel_err"] <= VIO_VEL_TOL,
+              f"vio[{name}]: velocity error {s['vel_err']} m/s > "
+              f"{VIO_VEL_TOL}")
+        if vcfg.base.use_marginalization:
+            check(s["probe"].get("priors_made", 0) >= 1,
+                  f"vio[{name}]: no marginalization prior made")
+        total += c["klt_bidir"]
+    return total
+
+
 def quantize(img):
     """A rendered frame as the uint8 image a camera would record."""
     import torch
@@ -1040,22 +1367,25 @@ def direct_run(ecfg, rig, u8, dev):
 
 def cli_euroc(tex, dev, tmp):
     """run_euroc on a mav0 tree of config/euroc_vio.yaml's frames, checked
-    against the step driven directly (module docstring, phase 10)."""
+    against the step driven directly (module docstring, phase 11)."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.cli import run_euroc
     from rsvio_tpu_torch.data import writers
     from rsvio_tpu_torch.models import estimator as est
     from rsvio_tpu_torch.utils import checkpoint, trajectory
+    from rsvio_tpu_torch.utils import config as config_mod
 
     n = CLI_FRAMES["euroc"]
     cfg_path = os.path.join(ROOT, "config", "euroc_vio.yaml")
     ecfg, rig, u8, truth = cli_frames(tex, cfg_path, n + 1, dev)
     ts = stamps(n)
-    imu = np.array([[ts[0] + 5_000_000 * i, 0, 0, 0, 0, 0, 9.81]
-                    for i in range(10 * n)])
+    imu, _ = vio_imu_stream(bench_trajectory(rig), n, config_mod.make_imu_params(
+        config_mod.load_config(cfg_path)))
+    imu_rows = np.concatenate([imu["ts"][:, None].astype(np.float64),
+                               imu["gyro"], imu["accel"]], axis=1)
     root = writers.write_euroc(os.path.join(tmp, "euroc"), u8[:n], ts,
-                               gt_positions=truth[:n], imu=imu)
+                               gt_positions=truth[:n], imu=imu_rows)
     traj, ckpt = os.path.join(tmp, "euroc.txt"), os.path.join(tmp, "s.ckpt")
     vdir = os.path.join(tmp, "viz")
     reset_counts()
@@ -1137,6 +1467,75 @@ def cli_euroc(tex, dev, tmp):
         "drift_rel": drift, "ba_fires": s["ba_fires_in_quality_pass"],
         "overlays": len(overlays), "resume_max_rel_diff": worst}
     print("cli[euroc]: " + json.dumps(line), flush=True)
+    return c["klt_bidir"] + cli_euroc_vio(cfg_path, root, u8[:n], truth[:n],
+                                          tmp)
+
+
+def cli_euroc_vio(cfg_path, root, u8, truth, tmp):
+    """run_euroc --vio on the euroc tree (its IMU csv holds the vio phase's
+    euroc_vio+vio stream), held to the VIO step driven directly on the same
+    decoded frames and IMU buffers from the same bootstrap."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.cli import run as cli_run
+    from rsvio_tpu_torch.cli import run_euroc
+    from rsvio_tpu_torch.data import players
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.utils import config as config_mod
+    from rsvio_tpu_torch.utils import trajectory
+
+    n = len(u8)
+    dev = torch.device("cuda")
+    traj = os.path.join(tmp, "euroc_vio.txt")
+    reset_counts()
+    rc = run_euroc.main([cfg_path, root, "--vio", "--trajectory-out", traj,
+                         "--eval-ate", "--quiet"])
+    c = counts()
+    res = run_euroc.main.last_result
+    check(rc == 0 and res.n_failed == 0,
+          f"cli[euroc --vio]: rc {rc}, failed frames {res.n_failed}")
+    check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+          f"cli[euroc --vio]: launches {c} for {n} frames")
+    with open(os.path.join(root, "statistics.txt")) as f:
+        m = re.search(r"ate_rmse_m: (\S+)", f.read())
+    check(m is not None, "cli[euroc --vio]: no ATE in statistics.txt")
+
+    cfg = config_mod.load_config(cfg_path)
+    ecfg, rig = config_mod.make_estimator_config(cfg, kind="vio", device=dev)
+    vcfg = cli_run.vio_config(cfg, ecfg)
+    samples = players.EurocPlayer(root).load_imu()
+    imu = {"ts": np.asarray([s_.timestamp_ns for s_ in samples]),
+           "gyro": np.asarray([s_.gyro for s_ in samples], np.float32),
+           "accel": np.asarray([s_.accel for s_ in samples], np.float32)}
+    state = cli_run.vio_bootstrap(vcfg, imu, torch.float32, dev)
+    step = ev.make_vio_estimator_step(vcfg)
+    ts = stamps(n)
+    poses, step_ms = [], []
+    for k, (a, b) in enumerate(u8):
+        a, b = (torch.from_numpy(x).to(dev).float() for x in (a, b))
+        buf = cli_run._imu_buffer_for_frame(imu, ts[k - 1] if k else None,
+                                            ts[k])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, out = step(state, rig, a, b, *buf)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        poses.append(out.T_W_B.double().cpu().numpy())
+    t_cli, pos_cli, q_cli = trajectory.load_tum(traj)
+    check(len(t_cli) == n, f"cli[euroc --vio]: {len(t_cli)} poses")
+    dpos = float(np.abs(pos_cli - np.stack([p[:3, 3] for p in poses])).max())
+    drot = float(quat_angle(q_cli, np.stack(
+        [trajectory.rot_to_quat_np(p[:3, :3]) for p in poses])).max())
+    line = {**ms_stats(res), "direct_blocked_median_ms": statistics.median(
+        step_ms), "launches": c, "traj_vs_direct_m": dpos,
+        "traj_vs_direct_rad": drot, "ate_m": float(m.group(1)),
+        "ate_direct_m": float(trajectory.ate_rmse(
+            np.stack([p[:3, 3] for p in poses]), truth)[0]),
+        "path_m": float(np.linalg.norm(np.diff(truth, axis=0), axis=1).sum()),
+        "vel": state.vel.double().cpu().numpy().tolist()}
+    print("cli[euroc --vio]: " + json.dumps(line), flush=True)
+    check(dpos <= CLI_TOL and drot <= CLI_TOL,
+          f"cli[euroc --vio]: trajectory vs direct step {dpos} m, {drot} rad")
     return c["klt_bidir"]
 
 
@@ -1265,7 +1664,7 @@ def cli_ab(tex, dev):
 
 
 def cli_phase(tex, dev, medians):
-    """The dataset command lines (module docstring, phase 10); returns
+    """The dataset command lines (module docstring, phase 11); returns
     their K1 launches."""
     import shutil
     import tempfile
@@ -1356,6 +1755,7 @@ def main():
     mono_launches = phase("mono", mono_phase, tex, dev, medians)
     config_launches = phase("configs", configs_phase, tex, dev, medians)
     option_launches = phase("options", options_phase, tex, frames, dev)
+    vio_launches = phase("vio", vio_phase, tex, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
@@ -1369,6 +1769,7 @@ def main():
                       "launches_mono": mono_launches,
                       "launches_configs": config_launches,
                       "launches_options": option_launches,
+                      "launches_vio": vio_launches,
                       "launches_cli": cli_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,

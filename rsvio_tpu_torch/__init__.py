@@ -20,7 +20,10 @@ lines (``cli.run_euroc``, ``run_tum``, ``run_4seasons``, ``run_tartanair``
 with ``cli.run`` / ``cli.playback``, the players and OpenCV-free PNG reader
 of ``data.players`` / ``data.png``, ``utils.trajectory``,
 ``utils.checkpoint``, ``utils.observer``, ``profiling`` and the artifact
-viewer of ``viewers``). Both TPU
+viewer of ``viewers``), and the visual-inertial estimator (``models.imu``,
+``models.vio_ba``, ``models.estimator_vio``, ``make_estimator_config(kind=
+"vio")``, ``--vio``) with the synthetic IMU scenes of ``data.synthetic``.
+Both TPU
 kernels of the JAX package have hand-written Hopper counterparts in
 ``ops.cuda.klt_kernel`` (source in ``csrc/``): the fused bidirectional KLT
 ``klt_bidir`` (translation and rotation) and the per-level ``klt_level``.

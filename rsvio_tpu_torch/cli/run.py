@@ -1,9 +1,9 @@
 """Shared player loop: drives the estimator over a dataset with real-time
 pacing, per-stage timing, viewer logging, statistics and trajectory export.
 
-Port of rsvio_tpu/cli/run.py on the VO path (the reference's
-EurocPlayer::run, ref src/datasets/euroc_player.rs:20-176): the same
-options, log lines, statistics and output files. What differs:
+Port of rsvio_tpu/cli/run.py (the reference's EurocPlayer::run, ref
+src/datasets/euroc_player.rs:20-176), VO and ``--vio``: the same options,
+log lines, statistics and output files. What differs:
 
   * ``--device {cuda,cpu}`` (default cuda; cuda without a GPU raises).
   * Frames are decoded by ``data.png`` on the prefetch thread and handed
@@ -17,7 +17,9 @@ options, log lines, statistics and output files. What differs:
   * A frame whose step fails is logged, skipped and counted in
     ``PlayerResult.n_failed``, unless the failure is the kernel layer's (a
     build or launch error, a CUDA error): that is raised.
-  * ``--vio`` raises: the VIO estimator is ROADMAP A14.
+  * ``--vio``: each frame's IMU buffer (64 masked samples) is built on
+    the host and handed to the VIO step as host arrays, which the step
+    uploads as one pinned copy.
   * The trace of ``--profile-dir`` is torch.profiler's (Chrome trace).
 """
 
@@ -33,9 +35,6 @@ from typing import List, Optional
 import numpy as np
 
 log = logging.getLogger("rsvio")
-
-VIO_UNPORTED = ("--vio: the VIO estimator is not ported yet (ROADMAP A14); "
-                "run the VO path without --vio")
 
 # FrameOutput fields the loop reads every frame.
 OUT_FIELDS = ("T_W_B", "is_keyframe", "pnp_success", "ba_success",
@@ -54,7 +53,7 @@ class PlayerConfig:
     enable_viewer: bool = False
     viewer_dir: Optional[str] = None    # write visualization artifacts here
     trajectory_out: Optional[str] = None
-    use_vio: bool = False       # visual-inertial mode: not ported (A14)
+    use_vio: bool = False       # visual-inertial mode (IMU preintegration)
     checkpoint_out: Optional[str] = None
     checkpoint_in: Optional[str] = None
     checkpoint_every: Optional[int] = None  # periodic snapshot every N frames
@@ -88,6 +87,72 @@ def setup_logging(verbose: bool = True):
         format="\x1b[90m%(asctime)s.%(msecs)03d\x1b[0m "
                "\x1b[36m%(levelname).1s\x1b[0m %(name)s: %(message)s",
         datefmt="%H:%M:%S")
+
+
+def _imu_buffer_for_frame(imu_data, prev_ts, cur_ts, buf: int = 64,
+                          np_dtype=np.float32):
+    """Fixed-capacity masked IMU buffer (host numpy) for the interval
+    (prev_ts, cur_ts]: gyro (buf,3), accel (buf,3), dts (buf,), mask."""
+    gyro = np.zeros((buf, 3), np_dtype)
+    accel = np.zeros((buf, 3), np_dtype)
+    dts = np.zeros((buf,), np_dtype)
+    mask = np.zeros((buf,), bool)
+    if prev_ts is not None:
+        ts = imu_data["ts"]
+        sel = np.nonzero((ts > prev_ts) & (ts <= cur_ts))[0][:buf]
+        n = len(sel)
+        if n:
+            gyro[:n] = imu_data["gyro"][sel]
+            accel[:n] = imu_data["accel"][sel]
+            t = ts[sel].astype(np.float64)
+            prev = np.concatenate([[prev_ts], t[:-1]])
+            dts[:n] = ((t - prev) * 1e-9).astype(np_dtype)
+            mask[:n] = True
+    return gyro, accel, dts, mask
+
+
+def vio_config(cfg, ecfg):
+    """The VIO estimator config of the CLI: the base config, the imu:
+    section and the solver keys the JAX CLI maps (rsvio_tpu/cli/run.py;
+    the window solve's max_iterations stays at its default there, 20)."""
+    from ..models import estimator_vio as ev
+    from ..models.vio_ba import VIOBAConfig
+    from ..utils.config import make_imu_params
+
+    s = cfg.solver
+    return ev.VIOEstimatorConfig(
+        base=ecfg, imu_params=make_imu_params(cfg),
+        vio=VIOBAConfig(huber_delta=s.huber_delta, cost_tol=s.cost_tol,
+                        param_tol=s.param_tol, chi2_gate=s.chi2_gate,
+                        chi2_gate_iter=s.chi2_gate_iter,
+                        bias_gyro_weight=s.bias_gyro_weight,
+                        bias_accel_weight=s.bias_accel_weight,
+                        bias_gyro_weight_desert=s.bias_gyro_weight_desert,
+                        bias_accel_weight_desert=s.bias_accel_weight_desert,
+                        min_lm_span=s.min_lm_span))
+
+
+def vio_bootstrap(vcfg, imu_data, dtype, dev):
+    """The VIO state: the gravity-aligned bootstrap from the first 0.5 s
+    of IMU when it is quasi-static (>= 5 samples), else identity."""
+    from ..models import estimator_vio as ev
+
+    ts0 = imu_data["ts"][0]
+    init_sel = imu_data["ts"] <= ts0 + int(0.5e9)
+    if init_sel.sum() >= 5:
+        static_ok, info = ev.quasi_static_check(
+            imu_data["gyro"][init_sel], imu_data["accel"][init_sel])
+        if static_ok:
+            log.info("VIO init: gravity-aligned attitude + gyro bias from "
+                     "%d static samples", int(init_sel.sum()))
+            return ev.initialize_vio_state(
+                vcfg, imu_data["gyro"][init_sel],
+                imu_data["accel"][init_sel], dtype=dtype, device=dev)
+        log.warning("VIO init: first 0.5 s of IMU not quasi-static "
+                    "(gyro_std=%.4f accel_std=%.3f |accel|=%.3f) — using "
+                    "identity init", info["gyro_std"], info["accel_std"],
+                    info["accel_norm"])
+    return ev.init_vio_state(vcfg, dtype=dtype, device=dev)
 
 
 def resolve_device(name: str):
@@ -152,8 +217,6 @@ def uploader(dev, dtype):
 
 def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
     """Run the full pipeline over `player`'s frames."""
-    if pcfg.use_vio:
-        raise NotImplementedError(VIO_UNPORTED)
     import torch
 
     from .. import profiling
@@ -184,13 +247,35 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
             "orders of magnitude slower than the kernel route on the GPU")
     log.info("device: %s", dev)
 
+    imu_data = None
+    if pcfg.use_vio:
+        from ..models import estimator_vio as ev
+        samples = player.load_imu() if hasattr(player, "load_imu") else []
+        if samples:
+            imu_data = {
+                "ts": np.asarray([s_.timestamp_ns for s_ in samples]),
+                "gyro": np.asarray([s_.gyro for s_ in samples], np.float32),
+                "accel": np.asarray([s_.accel for s_ in samples],
+                                    np.float32)}
+            # The config resolved for the VIO estimator kind.
+            ecfg, rig = make_estimator_config(cfg, kind="vio", device=dev)
+            vcfg = vio_config(cfg, ecfg)
+            step = ev.make_vio_estimator_step(vcfg)
+            state = vio_bootstrap(vcfg, imu_data, dtype, dev)
+            log.info("VIO mode: %d IMU samples loaded", len(samples))
+        else:
+            log.warning("VIO requested but no IMU data found; running VO")
     stage_step = None
-    if pcfg.stage_timing:
-        stage_step = est.make_estimator_split_step(ecfg)
-        log.info("stage-timing mode: synchronized estimator stages (%s)",
-                 "/".join(est.STAGE_NAMES))
-    step = est.make_estimator_step(ecfg)
-    state = est.init_state(ecfg, dtype=dtype, device=dev)
+    if imu_data is None:
+        if pcfg.stage_timing:
+            stage_step = est.make_estimator_split_step(ecfg)
+            log.info("stage-timing mode: synchronized estimator stages "
+                     "(%s)", "/".join(est.STAGE_NAMES))
+        step = est.make_estimator_step(ecfg)
+        state = est.init_state(ecfg, dtype=dtype, device=dev)
+    elif pcfg.stage_timing:
+        log.warning("--stage-timing is VO-only; ignored in VIO mode")
+    imu_np_dtype = np.float64 if cfg.precision == "f64" else np.float32
     if pcfg.checkpoint_in:
         state = load_state(pcfg.checkpoint_in, state)
         log.info("resumed state from %s", pcfg.checkpoint_in)
@@ -252,7 +337,13 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                 with profiling.span("frame_creation"):
                     img_l, img_r = (upload(t) for t in frame.tensors)
                 with profiling.span("process_frame"):
-                    if stage_step is not None:
+                    if imu_data is not None:
+                        state, out = step(
+                            state, rig, img_l, img_r,
+                            *_imu_buffer_for_frame(
+                                imu_data, prev_ts, frame.timestamp_ns,
+                                buf=64, np_dtype=imu_np_dtype))
+                    elif stage_step is not None:
                         state, out, stage_ms = stage_step(state, rig, img_l,
                                                           img_r)
                         log.debug(
@@ -459,8 +550,7 @@ def make_cli(player_cls, name: str):
                              "PLY map, SVG trajectory) to this directory")
         ap.add_argument("--trajectory-out", default=None)
         ap.add_argument("--vio", action="store_true",
-                        help="visual-inertial mode (not ported yet: ROADMAP "
-                             "A14)")
+                        help="visual-inertial mode (IMU preintegration)")
         ap.add_argument("--marginalization",
                         action=argparse.BooleanOptionalAction, default=None,
                         help="Schur-marginalize evicted keyframes into a "

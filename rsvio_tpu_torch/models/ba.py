@@ -207,9 +207,11 @@ def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
 
 
 def _sel(c, new, old):
-    """where(c, new, old) for a 0-d bool c over tensors or tuples."""
+    """where(c, new, old) for a 0-d bool c over tensors, tuples and
+    NamedTuples."""
     if isinstance(new, tuple):
-        return tuple(_sel(c, n, o) for n, o in zip(new, old))
+        out = (_sel(c, n, o) for n, o in zip(new, old))
+        return type(new)(*out) if hasattr(new, "_fields") else tuple(out)
     return torch.where(c, new, old)
 
 
@@ -243,15 +245,15 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0)
 
     T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
-    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
     done = ~attempt
-    status = torch.tensor(STATUS_MAX_ITERATIONS, dtype=torch.int32,
-                          device=dev)
+    status = torch.full((), STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                        device=dev)
     metrics = torch.zeros((cfg.max_iterations, N_METRIC_COLS), dtype=dtype,
                           device=dev)
     mask, lm_active = mask0, lm_active0
-    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     # Fixed trip count; an iteration after `done` leaves the carry as it was.
@@ -410,15 +412,15 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0, lm_active0)
 
     T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
-    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
     done = ~attempt
-    status = torch.tensor(STATUS_MAX_ITERATIONS, dtype=torch.int32,
-                          device=dev)
+    status = torch.full((), STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                        device=dev)
     metrics = torch.zeros((cfg.max_iterations, N_METRIC_COLS), dtype=dtype,
                           device=dev)
     mask, lm_active = mask0, lm_active0
-    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
 
     # Fixed trip count; an iteration after `done` leaves the carry as it was.
     for _ in range(cfg.max_iterations):

@@ -389,11 +389,11 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
     pnp_mask = obs_cur_mask & lm_ok[None, :]
     n_pnp = pnp_mask.to(torch.int32).sum(dtype=torch.int32)
 
-    false = torch.tensor(False, device=dev)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
     use_ransac = cfg.pnp.ransac_hypotheses > 0
     inl_mask, ransac_ok = pnp_mask, false
-    n_inl = torch.tensor(0, dtype=torch.int32, device=dev)
-    health = torch.tensor(1.0, dtype=dtype, device=dev)
+    n_inl = torch.zeros((), dtype=torch.int32, device=dev)
+    health = torch.ones((), dtype=dtype, device=dev)
     # Host branch (JAX: lax.cond on pnp_ready): one sync per frame, which
     # with the gate on also brings the frame id that seeds its draws.
     if use_ransac:
@@ -414,8 +414,8 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
         ramp = torch.clamp((f_inl - cfg.health_f_lo)
                            / max(cfg.health_f_hi - cfg.health_f_lo, 1e-6),
                            0.0, 1.0)
-        health = torch.where(ransac_ok, ramp, torch.tensor(
-            cfg.health_floor, dtype=dtype, device=dev))
+        health = torch.where(ransac_ok, ramp, torch.full(
+            (), cfg.health_floor, dtype=dtype, device=dev))
     if use_ransac and cfg.health_recover < 1.0 and health_prev is not None:
         # Hysteresis: drop at once, recover at most health_recover a frame.
         health = torch.minimum(health, health_prev + cfg.health_recover)
@@ -450,7 +450,7 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
     is_kf = torch.where(window_full,
                         (t_norm > cfg.translation_threshold)
                         | (r_norm > cfg.rotation_threshold),
-                        torch.tensor(True, device=dev))
+                        torch.ones((), dtype=torch.bool, device=dev))
 
     # RANSAC outlier kill: tracks whose map observation fell outside the
     # winning consensus, when the gate won and the polish succeeded.
@@ -663,9 +663,9 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
                     prep, rig, state.marg_prior)
             else:
                 res_T, res_lm = prep.kf_T, prep.lm
-                ba_ok = torch.tensor(False, device=dev)
-                ba_it = torch.tensor(0, dtype=torch.int32, device=dev)
-                ba_cost = torch.tensor(0.0, dtype=T_cur.dtype, device=dev)
+                ba_ok = torch.zeros((), dtype=torch.bool, device=dev)
+                ba_it = torch.zeros((), dtype=torch.int32, device=dev)
+                ba_cost = torch.zeros((), dtype=T_cur.dtype, device=dev)
                 marg_prior = state.marg_prior
             kf_T, lm, lm_fid, T_new = stage_kf_post(prep, rig, res_T,
                                                     res_lm, ba_ok)
@@ -685,9 +685,9 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
                        state.flow_n)
             n_dyn = torch.zeros((), dtype=torch.int32, device=dev)
             T_out, last_kf = T_cur, state.last_kf_T_W_B
-            ba_ok = torch.tensor(False, device=dev)
-            ba_it = torch.tensor(0, dtype=torch.int32, device=dev)
-            ba_cost = torch.tensor(0.0, dtype=T_cur.dtype, device=dev)
+            ba_ok = torch.zeros((), dtype=torch.bool, device=dev)
+            ba_it = torch.zeros((), dtype=torch.int32, device=dev)
+            ba_cost = torch.zeros((), dtype=T_cur.dtype, device=dev)
 
         new_state = EstimatorState(
             table=table, pyr0=pyr0, pyr1=pyr1, kf_T_W_B=kf_T,

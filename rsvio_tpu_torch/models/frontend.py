@@ -166,10 +166,10 @@ def frontend_step(table: FeatureTable, pyr0_prev, pyr1_prev, pyr0, pyr1,
         # Starvation floor: too few live tracks lower the score floor.
         starving = table.alive.sum() < cfg.relax_floor_below
         floor = torch.where(
-            starving, torch.tensor(cfg.relaxed_min_score, dtype=score.dtype,
-                                   device=score.device),
-            torch.tensor(cfg.min_score, dtype=score.dtype,
-                         device=score.device))
+            starving, torch.full((), cfg.relaxed_min_score,
+                                 dtype=score.dtype, device=score.device),
+            torch.full((), cfg.min_score, dtype=score.dtype,
+                       device=score.device))
     if cfg.detect_mode == "nms":
         cand_xy, cand_ok = detect.nms_select(
             score, table.pos0, table.alive, cfg.nms_radius,

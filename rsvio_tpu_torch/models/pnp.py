@@ -111,15 +111,15 @@ def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
 
     H, g, cost, _ = linearize(T_B_W0, mask)
     T = T_B_W0
-    lam = torch.tensor(cfg.lambda_init, dtype=dtype, device=dev)
-    it = torch.tensor(0, dtype=torch.int32, device=dev)
+    lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
+    it = torch.zeros((), dtype=torch.int32, device=dev)
     done = ~enough
-    status = torch.tensor(STATUS_MAX_ITERATIONS, dtype=torch.int32,
-                          device=dev)
+    status = torch.full((), STATUS_MAX_ITERATIONS, dtype=torch.int32,
+                        device=dev)
     metrics = torch.zeros((cfg.max_iterations, ba_mod.N_METRIC_COLS),
                           dtype=dtype, device=dev)
     m = mask
-    n_acc = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
     rows = torch.arange(cfg.max_iterations, device=dev)
 
     # Fixed trip count; an iteration after `done` leaves the carry as it was.

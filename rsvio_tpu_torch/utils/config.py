@@ -424,8 +424,10 @@ def load_config(path: str) -> Config:
 
 def make_estimator_config(cfg: Config, kind: str = "vo", device="cuda"):
     """Translate a Config into the port's (EstimatorConfig, CameraRig), the
-    rig on `device` in float64 when ``precision: f64``. Only ``kind="vo"``
-    is ported; the VIO estimator is ROADMAP A14."""
+    rig on `device` in float64 when ``precision: f64``. `kind` is the
+    estimator the base config is for, "vo" or "vio": it resolves
+    ``dynamic_flow_center: auto`` (on for VO, off for VIO, whose IMU anchors
+    the pose)."""
     import torch
 
     from ..models import ba as ba_mod
@@ -435,10 +437,7 @@ def make_estimator_config(cfg: Config, kind: str = "vo", device="cuda"):
     from ..ops import cameras
     from ..ops.klt import KLTConfig
 
-    if kind == "vio":
-        raise NotImplementedError(
-            "the VIO estimator is not ported yet (ROADMAP A14)")
-    if kind != "vo":
+    if kind not in ("vo", "vio"):
         raise ValueError(f"kind must be 'vo' or 'vio', got {kind!r}")
     dtype = torch.float64 if cfg.precision == "f64" else torch.float32
     kind_l = cfg.camera.left_model or "pinhole-radtan"
@@ -527,8 +526,18 @@ def make_estimator_config(cfg: Config, kind: str = "vo", device="cuda"):
         dynamic_flow_thresh=s.dynamic_flow,
         dynamic_flow_decay=s.dynamic_flow_decay,
         dynamic_flow_min_n=s.dynamic_flow_min_n,
-        # "auto" centres for VO (validated in load_config).
-        dynamic_flow_center=(True if s.dynamic_flow_center == "auto"
+        # "auto" resolves per estimator kind (validated in load_config).
+        dynamic_flow_center=(kind != "vio" if s.dynamic_flow_center == "auto"
                              else s.dynamic_flow_center == "on"),
     )
     return ecfg, rig
+
+
+def make_imu_params(cfg: Config):
+    """The imu: section as models.imu.ImuParams."""
+    from ..models.imu import ImuParams
+
+    return ImuParams(gyro_noise=cfg.imu.gyroscope_noise_density,
+                     accel_noise=cfg.imu.accelerometer_noise_density,
+                     gyro_bias_walk=cfg.imu.gyroscope_random_walk,
+                     accel_bias_walk=cfg.imu.accelerometer_random_walk)

@@ -1,4 +1,5 @@
-"""Carry the JAX package's rig and estimator state across to the port.
+"""Carry the JAX package's rig and estimator states (VO and VIO) across to
+the port.
 
 This system's counterpart of carrying weights across: a test can start both
 steps from the same mid-sequence state. The inputs are the JAX package's
@@ -7,8 +8,9 @@ steps from the same mid-sequence state. The inputs are the JAX package's
 field names works. Every field is carried by name, so the optional state
 (the RANSAC gate's ``lm_birth`` and ``health_ema``), the table's weights
 ``w`` and ages, and an EUCM rig's parameters come across as they are; a
-field the JAX state leaves None stays None. Nothing here imports JAX or
-rsvio_tpu.
+field the JAX state leaves None stays None. A VIO state's nested
+``Preintegrated`` (leading dim W-1) and its 15-dim ``MargPrior`` come
+across the same way. Nothing here imports JAX or rsvio_tpu.
 """
 
 from __future__ import annotations
@@ -17,8 +19,13 @@ import numpy as np
 import torch
 
 from ..models.estimator import CameraRig, EstimatorState
+from ..models.estimator_vio import VIOEstimatorState
 from ..models.frontend import FeatureTable
+from ..models.imu import Preintegrated
 from ..models.marginalization import MargPrior
+
+_NESTED = {"table": FeatureTable, "marg_prior": MargPrior,
+           "kf_preint": Preintegrated}
 
 
 def _t(a, device):
@@ -39,29 +46,45 @@ def rig_from_numpy(rig, device="cuda") -> CameraRig:
     return _fields(CameraRig, rig, lambda a: _t(a, device))
 
 
-def state_from_numpy(state, device="cuda") -> EstimatorState:
-    """JAX EstimatorState with numpy leaves -> the port's EstimatorState on
-    `device`."""
+def _state_from_numpy(cls, state, device):
     def conv(name, v):
-        if name == "table":
-            return _fields(FeatureTable, v, lambda a: _t(a, device))
-        if name == "marg_prior":
-            return _fields(MargPrior, v, lambda a: _t(a, device))
+        if name in _NESTED:
+            return _fields(_NESTED[name], v, lambda a: _t(a, device))
         if name in ("pyr0", "pyr1"):
             return tuple(_t(lvl, device) for lvl in v)
         return _t(v, device)
-    return EstimatorState(**{f: conv(f, getattr(state, f, None))
-                             for f in EstimatorState._fields})
+    return cls(**{f: conv(f, getattr(state, f, None)) for f in cls._fields})
+
+
+def _state_to_numpy(cls, state):
+    def conv(name, v):
+        if name in _NESTED:
+            return type(v)(*(_n(x) for x in v))
+        if name in ("pyr0", "pyr1"):
+            return tuple(_n(lvl) for lvl in v)
+        return _n(v)
+    return cls(**{f: conv(f, getattr(state, f)) for f in cls._fields})
+
+
+def state_from_numpy(state, device="cuda") -> EstimatorState:
+    """JAX EstimatorState with numpy leaves -> the port's EstimatorState on
+    `device`."""
+    return _state_from_numpy(EstimatorState, state, device)
 
 
 def state_to_numpy(state: EstimatorState) -> EstimatorState:
     """The port's EstimatorState with every tensor turned into a numpy
     array (same structure and field names as the JAX state)."""
-    def conv(name, v):
-        if name in ("table", "marg_prior"):
-            return type(v)(*(_n(x) for x in v))
-        if name in ("pyr0", "pyr1"):
-            return tuple(_n(lvl) for lvl in v)
-        return _n(v)
-    return EstimatorState(**{f: conv(f, getattr(state, f))
-                             for f in EstimatorState._fields})
+    return _state_to_numpy(EstimatorState, state)
+
+
+def vio_state_from_numpy(state, device="cuda") -> VIOEstimatorState:
+    """JAX VIOEstimatorState with numpy leaves -> the port's
+    VIOEstimatorState on `device`."""
+    return _state_from_numpy(VIOEstimatorState, state, device)
+
+
+def vio_state_to_numpy(state: VIOEstimatorState) -> VIOEstimatorState:
+    """The port's VIOEstimatorState as numpy arrays (the JAX state's
+    structure and field names)."""
+    return _state_to_numpy(VIOEstimatorState, state)

@@ -461,10 +461,32 @@ def test_profile_realtime_and_step_mode(tree, tmp_path):
 
 # ------------------------------------------------------- refusals, failures
 
-def test_vio_and_missing_gpu_raise(tree, monkeypatch):
+def test_vio_and_missing_gpu_raise(tree, monkeypatch, tmp_path):
+    """--vio runs on a tree with an IMU csv (bootstrapped from its static
+    head); on a tree without one it warns and runs VO; --device cuda
+    without a GPU raises."""
     root, cfg = tree
-    with pytest.raises(NotImplementedError, match="A14"):
-        trun_euroc.main([cfg, root, "--device", "cpu", "--vio"])
+    rc, lines = run(trun_euroc.main, [cfg, root, "--device", "cpu", "--vio",
+                                      "--max-frames", "3"])
+    assert rc == 0
+    assert sum("VIO requested but no IMU data found; running VO" in ln
+               for ln in lines) == 1
+    assert len(timing_fields(lines)) == 3
+    step = 5_000_000
+    imu_ts = np.arange(STAMPS[0] - 100 * step, STAMPS[-1] + 1, step)
+    imu = np.zeros((len(imu_ts), 7))
+    imu[:, 0], imu[:, 6] = imu_ts, 9.81
+    vio_root = str(tmp_path / "vio")
+    writers.write_euroc(vio_root, stereo_frames(), STAMPS,
+                        gt_positions=gt_positions(), imu=imu)
+    traj = str(tmp_path / "vio.txt")
+    rc, lines = run(trun_euroc.main, [cfg, vio_root, "--device", "cpu",
+                                      "--vio", "--trajectory-out", traj])
+    assert rc == 0
+    assert any(ln.startswith("VIO mode: ") for ln in lines)
+    assert any("gravity-aligned" in ln for ln in lines)
+    assert not any("no IMU data" in ln for ln in lines)
+    assert len(load_poses(traj)[0]) == N
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in ((trun_euroc.main, [cfg, root]),
                        (trun_tartanair.main, [root])):

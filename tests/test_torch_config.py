@@ -176,9 +176,21 @@ def test_numeric_strings_are_coerced_as_in_jax(tmp_path):
 
 
 def test_vio_kind_is_not_ported():
+    """kind="vio" (ported now): the base config and rig equal JAX's, and
+    ``dynamic_flow_center: auto`` resolves off for VIO, on for VO; any
+    other kind raises ValueError."""
     cfg = tcfg.load_config(_path("euroc_vio.yaml"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tcfg.make_estimator_config(cfg, kind="vio", device="cpu")
+    cfg.solver.dynamic_flow = 0.02
+    ecfg_t, rig_t = tcfg.make_estimator_config(cfg, kind="vio",
+                                               device="cpu")
+    cfg_j = jcfg.load_config(_path("euroc_vio.yaml"))
+    cfg_j.solver.dynamic_flow = 0.02
+    ecfg_j, rig_j = jcfg.make_estimator_config(cfg_j, kind="vio")
+    assert _cfg_dict(ecfg_t) == _cfg_dict(ecfg_j)
+    _assert_rig_equal(rig_t, rig_j, torch.float32)
+    assert ecfg_t.dynamic_flow_center is False
+    assert tcfg.make_estimator_config(cfg, kind="vo", device="cpu")[0] \
+        .dynamic_flow_center is True
     with pytest.raises(ValueError):
         tcfg.make_estimator_config(cfg, kind="mono", device="cpu")
 

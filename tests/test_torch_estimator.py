@@ -34,6 +34,7 @@ from rsvio_tpu.ops import klt as jklt
 from rsvio_tpu_torch.data import bench_scene
 from rsvio_tpu_torch.models import ba as tba
 from rsvio_tpu_torch.models import estimator as test_
+from rsvio_tpu_torch.models import estimator_vio as tev
 from rsvio_tpu_torch.models import frontend as tfe
 from rsvio_tpu_torch.models import marginalization as tmarg
 from rsvio_tpu_torch.models import mono_tracker as tmono
@@ -322,6 +323,9 @@ def _default_device_calls():
     cfg = _torch_cfg()
     rig_np = _np(_jax_rig())
     state_np = convert.state_to_numpy(test_.init_state(cfg, device="cpu"))
+    vcfg = tev.VIOEstimatorConfig(base=cfg)
+    vio_np = convert.vio_state_to_numpy(tev.init_vio_state(vcfg,
+                                                           device="cpu"))
     return {
         "init_state": (test_.init_state, lambda: test_.init_state(cfg)),
         "init_table": (tfe.init_table, lambda: tfe.init_table(8)),
@@ -338,13 +342,27 @@ def _default_device_calls():
         "make_estimator_config": (
             tconfig.make_estimator_config,
             lambda: tconfig.make_estimator_config(tconfig.Config())),
+        "init_vio_state": (tev.init_vio_state,
+                           lambda: tev.init_vio_state(vcfg)),
+        "initialize_vio_state": (
+            tev.initialize_vio_state,
+            lambda: tev.initialize_vio_state(
+                vcfg, np.zeros((5, 3)), np.tile([0.0, 0.0, 9.81], (5, 1)))),
+        "vio_state_from_numpy": (
+            convert.vio_state_from_numpy,
+            lambda: convert.vio_state_from_numpy(vio_np)),
+        "make_estimator_config_vio": (
+            tconfig.make_estimator_config,
+            lambda: tconfig.make_estimator_config(tconfig.Config(),
+                                                  kind="vio")),
     }
 
 
 @pytest.mark.parametrize("name", [
     "init_state", "init_table", "empty_prior", "make_rig", "rig_from_numpy",
     "state_from_numpy", "pack_params", "init_mono_table",
-    "make_estimator_config"])
+    "make_estimator_config", "init_vio_state", "initialize_vio_state",
+    "vio_state_from_numpy", "make_estimator_config_vio"])
 def test_entry_points_default_to_cuda(name):
     """Entry points run on the card unless the caller asks for the CPU:
     their device default is CUDA, and without a card the default raises

@@ -1013,3 +1013,235 @@ def test_checkpoint_round_trip_on_cuda(dev, tmp_path):
                                   checkpoint.flatten(state)):
             assert x.device.type == d.type, n
             assert torch.equal(x.cpu(), y.cpu()), n
+
+
+# ------------------------------------------------------------------ VIO
+
+def _hover_imu(n=10, s=16):
+    """Host IMU buffer of a body at constant velocity: accel (0, 0, +g),
+    no rate; the first n of s samples valid (200 Hz)."""
+    gyro = np.zeros((s, 3), np.float32)
+    accel = np.zeros((s, 3), np.float32)
+    accel[:, 2] = 9.81
+    mask = np.zeros(s, bool)
+    mask[:n] = True
+    return gyro, accel, np.full(s, 0.005, np.float32), mask
+
+
+def _vio_cfg(base, **base_kw):
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.models.vio_ba import VIOBAConfig
+    return ev.VIOEstimatorConfig(base=base._replace(**base_kw), imu_buf=16,
+                                 vio=VIOBAConfig(max_iterations=10))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("marg", [False, True], ids=["fifo", "marg"])
+def test_vio_step_on_cuda_matches_cpu(dev, marg):
+    """The VIO step on the small scene: CUDA (kernel) vs CPU (plain), flags
+    and counts equal, poses within 3e-3 m (the float32 joint solve's
+    noise, tests/test_torch_vio.py), velocity within 1e-2 m/s; 2 K1
+    launches a frame."""
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    base, frames, shape = _small_scene(10)
+    cfg = _vio_cfg(base, use_marginalization=marg)
+    step = ev.make_vio_estimator_step(cfg)
+    outs, states = {}, {}
+    for d in (torch.device("cpu"), dev):
+        rig = bench_scene.make_rig(d, shape=shape, fx=100.0)
+        state = ev.init_vio_state(cfg, device=d)
+        kk.klt_bidir.launches = 0
+        outs[d.type] = []
+        for a, b in frames:
+            state, out = step(state, rig, a.to(d), b.to(d), *_hover_imu())
+            outs[d.type].append(out)
+        states[d.type] = state
+        assert kk.klt_bidir.launches == (20 if d.type == "cuda" else 0)
+    for oc, og in zip(outs["cpu"], outs["cuda"]):
+        for f in ("n_tracked", "is_keyframe", "ba_success", "n_landmarks"):
+            assert int(getattr(oc, f)) == int(getattr(og, f)), f
+        assert float((oc.T_W_B - og.T_W_B.cpu()).abs().max()) <= 3e-3
+    assert float((states["cpu"].vel - states["cuda"].vel.cpu())
+                 .abs().max()) <= 1e-2
+    assert bool(states["cuda"].marg_prior.valid) == marg
+    assert float(outs["cuda"][-1].T_W_B[0, 3]) > 0.05
+    # The IMU buffer handed over as CUDA tensors (the whole buffer looped,
+    # no host bound): the same poses, bit for bit.
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    state = ev.init_vio_state(cfg, device=dev)
+    imu_dev = [torch.from_numpy(x).to(dev) for x in _hover_imu()]
+    for (a, b), og in zip(frames, outs["cuda"]):
+        state, out = step(state, rig, a.to(dev), b.to(dev), *imu_dev)
+        assert torch.equal(out.T_W_B, og.T_W_B)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_preintegrate_interval_buffer_on_cuda(dev, dtype):
+    """preintegrate at interval_buf (512 samples, 300 of them live with
+    holes) on CUDA against the CPU (float32 1e-5, float64 1e-10 of each
+    field's largest entry), and its short loop bitwise the full loop."""
+    from rsvio_tpu_torch.models import imu
+
+    rng = np.random.default_rng(4)
+    S, n = 512, 300
+    gyro = rng.normal(0, 0.5, (S, 3))
+    accel = rng.normal(0, 1.0, (S, 3)) + [0.0, 0.0, 9.81]
+    dts = np.full(S, 0.005)
+    mask = (np.arange(S) < n) & (rng.uniform(size=S) > 0.1)
+    bg, ba = rng.normal(0, 0.01, 3), rng.normal(0, 0.05, 3)
+
+    def run(d, n_steps=None):
+        t = [torch.from_numpy(x).to(d, dtype) for x in (gyro, accel, dts)]
+        return imu.preintegrate(*t, torch.from_numpy(mask).to(d),
+                                torch.from_numpy(bg).to(d, dtype),
+                                torch.from_numpy(ba).to(d, dtype),
+                                n_steps=n_steps)
+
+    cpu, full, short = run("cpu"), run(dev), run(dev, n_steps=n)
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    for f in imu.Preintegrated._fields:
+        c, g = getattr(cpu, f), getattr(full, f)
+        assert torch.equal(g, getattr(short, f)), f
+        scale = max(float(c.abs().max()), 1e-30)
+        assert float((g.cpu() - c).abs().max()) <= tol * scale, f
+
+
+def _vio_window(dtype, W=5, L=30, seed=2):
+    """A VIO window on the traj_6dof trajectory (numpy only): states
+    perturbed, stereo observations, intervals preintegrated on the CPU."""
+    from rsvio_tpu_torch.data import synthetic
+    from rsvio_tpu_torch.models import imu, vio_ba
+
+    rng = np.random.default_rng(seed)
+    traj = synthetic.traj_6dof()
+    kf_dt = 0.25
+    T_gt = np.stack([traj.pose(kf_dt * i) for i in range(W)])
+    vel = np.stack([(traj.pos_fn(kf_dt * i + 1e-5)
+                     - traj.pos_fn(kf_dt * i - 1e-5)) / 2e-5
+                    for i in range(W)])
+    p_W = np.stack([rng.uniform(-3, 3, L), rng.uniform(4, 9, L),
+                    rng.uniform(-2, 2, L)], axis=1)
+    T_C_B = np.stack([np.eye(4)] * 2)
+    T_C_B[1, 0, 3] = -0.11
+    obs = np.zeros((W, 2, L, 2))
+    mask = np.zeros((W, 2, L), bool)
+    for i in range(W):
+        Tbw = np.linalg.inv(T_gt[i])
+        for c in range(2):
+            pC = (T_C_B[c][:3, :3] @ (Tbw[:3, :3] @ p_W.T + Tbw[:3, 3:4])
+                  + T_C_B[c][:3, 3:4]).T
+            ok = pC[:, 2] > 0.5
+            obs[i, c, ok] = pC[ok, :2] / pC[ok, 2:3]
+            mask[i, c] = ok
+    pres = []
+    for i in range(W - 1):
+        _, g, a, d = traj.sample_imu(kf_dt * i, kf_dt * (i + 1))
+        t = [torch.from_numpy(x).double() for x in (g, a, d)]
+        pres.append(imu.preintegrate(*t, torch.ones(len(d), dtype=torch.bool),
+                                     torch.zeros(3, dtype=torch.float64),
+                                     torch.zeros(3, dtype=torch.float64)))
+    pre = imu.Preintegrated(*(torch.stack(x).to(dtype) for x in zip(*pres)))
+    T0 = T_gt.copy()
+    for i in range(1, W):
+        T0[i, :3, 3] += rng.normal(size=3) * 0.02
+    st = vio_ba.VIOState(
+        T_W_B=torch.from_numpy(T0).to(dtype),
+        vel=torch.from_numpy(vel + rng.normal(size=vel.shape) * 0.05)
+        .to(dtype),
+        bg=torch.zeros((W, 3), dtype=dtype), ba=torch.zeros((W, 3),
+                                                            dtype=dtype))
+    lms = torch.from_numpy(p_W + rng.normal(size=p_W.shape) * 0.05).to(dtype)
+    return (st, torch.from_numpy(T_C_B).to(dtype), lms,
+            torch.from_numpy(obs).to(dtype), torch.from_numpy(mask),
+            torch.ones(L, dtype=torch.bool), pre,
+            torch.ones(W - 1, dtype=torch.bool))
+
+
+def _to(x, d):
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to(v, d) for v in x))
+    if isinstance(x, tuple):
+        return tuple(_to(v, d) for v in x)
+    return x.to(d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fn", ["solve_vio_ba", "solve_vio_ba_marginalized"])
+def test_vio_solvers_on_cuda_match_cpu(dev, fn, dtype):
+    """The joint window solves on CUDA against the CPU, with the chi^2
+    gate: float64 the same iterations and status, states within 1e-8 and
+    the next prior within 1e-8 of max|H|; float32 (which stops on the
+    iteration cap at its resolution) states within 1e-2."""
+    from rsvio_tpu_torch.models import marginalization as mg
+    from rsvio_tpu_torch.models import vio_ba
+
+    args = _vio_window(dtype)
+    cfg = vio_ba.VIOBAConfig(chi2_gate=0.01)
+    res = {}
+    for d in (torch.device("cpu"), dev):
+        a = _to(args, d)
+        if fn == "solve_vio_ba":
+            res[d.type] = (vio_ba.solve_vio_ba(*a, cfg=cfg), None)
+        else:
+            p0 = mg.empty_prior(5, 15, dtype, d)
+            r1, p1 = vio_ba.solve_vio_ba_marginalized(
+                *a, p0, torch.ones((), dtype=torch.bool, device=d), cfg)
+            res[d.type] = vio_ba.solve_vio_ba_marginalized(
+                *a, p1, torch.ones((), dtype=torch.bool, device=d), cfg)
+    (rc, pc), (rg, pg) = res["cpu"], res["cuda"]
+    assert bool(rc.success) and bool(rg.success)
+    f64 = dtype == torch.float64
+    if f64:
+        assert int(rc.iterations) == int(rg.iterations)
+        assert int(rc.status) == int(rg.status)
+    for f in vio_ba.VIOState._fields:
+        err = float((getattr(rg.state, f).cpu() - getattr(rc.state, f))
+                    .abs().max())
+        assert err <= (1e-8 if f64 else 1e-2), (f, err)
+    if pc is not None and f64:
+        scale = max(1.0, float(pc.H.abs().max()))
+        for f in ("H", "g"):
+            assert float((getattr(pg, f).cpu() - getattr(pc, f)).abs()
+                         .max()) <= 1e-8 * scale, f
+
+
+@pytest.mark.gpu
+def test_vio_frame_syncs_equal_vo_step(dev):
+    """Host syncs per frame (torch's sync debug mode): the VIO step, with
+    its IMU buffer handed over as host arrays (one pinned upload), makes
+    exactly as many as the VO step on the same frames, frame kind by frame
+    kind (keyframe with BA, without a keyframe). Each sequence runs twice
+    and the second pass is counted."""
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    base, frames, shape = _small_scene(10)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    vcfg = _vio_cfg(base)
+    runs = {"vo": (est.make_estimator_step(base),
+                   lambda: est.init_state(base, device=dev), ()),
+            "vio": (ev.make_vio_estimator_step(vcfg),
+                    lambda: ev.init_vio_state(vcfg, device=dev),
+                    _hover_imu())}
+    per_kind, where = {}, {}
+    for name, (step, init, imu_args) in runs.items():
+        for counted in (False, True):
+            state = init()
+            torch.cuda.synchronize()
+            for a, b in frames_d:
+                (state, out), syncs = _count_syncs(
+                    lambda: step(state, rig, a, b, *imu_args))
+                if counted:
+                    key = (bool(out.is_keyframe), bool(out.ba_success))
+                    per_kind.setdefault(name, {}).setdefault(
+                        key, set()).add(len(syncs))
+                    where.setdefault((name, key), syncs)
+    assert per_kind["vio"].get((True, True)) and \
+        per_kind["vio"].get((False, False))
+    for key, counts in per_kind["vio"].items():
+        assert key in per_kind["vo"], (key, per_kind)
+        assert counts == per_kind["vo"][key], (
+            key, per_kind, where[("vo", key)], where[("vio", key)])
