@@ -153,11 +153,41 @@ them. Phases, each of which raises on failure:
                step and its one read), the direct step's blocked median at
                the same config in this call, and the decode ms per frame
                on the prefetch thread.
+ 12. dist    — the distributed layer (rsvio_tpu_torch/parallel) in ranks
+               spawned by parallel.dryrun.run_ranks (a file store),
+               twice: NCCL at one rank per card, then gloo at 2 ranks on
+               card 0 (CUDA tensors staged through the host). Each rank:
+               the cost of one collective (the packed all-reduce of a
+               solve's Schur system and a bare all-reduce); the four
+               sharded window solvers on W=10 windows (dryrun's
+               window_problem and vio_window_problem) at L=256 and 1024
+               against the single-device solves on the same card (poses
+               within 1e-3 relative + 1e-4, priors' H within 5e-3 of
+               max|H|), their all-reduce calls and bytes a solve and an
+               LM iteration (a 20-iteration solve less a 10-iteration
+               one), which must not change with L; then 30 frames of the
+               distributed VO step (the main path's default config, with
+               and without use_marginalization) and of the distributed
+               VIO step (config/euroc_vio.yaml with --vio and
+               marginalization on the vio phase's euroc scene and IMU
+               stream), each frame synchronized, every window solve
+               synchronized and timed, beside the single-device step on
+               the same frames (run first by rank 0 alone). Requires the
+               floors of main (VIO: of the vio phase, velocity too), the
+               poses within 5e-3 m (VO) and 1e-2 (VIO, the velocity too)
+               of the single-device step's with equal keyframes (the
+               tolerances of tests/test_dist_estimator.py), the ranks'
+               poses bitwise equal, exactly 2 K1 launches a frame on every
+               rank and a sharded solve fired; prints frames/s, the
+               blocked median and the median solve ms of both, and the
+               all-reduce calls and bytes a solve.
 
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
-and cli_ab (the euroc CLI against the direct step, in turns) and prints no
-result line. Drift is against the scene's truth, bench_scene.truth_position
+and cli_ab (the euroc CLI against the direct step, in turns), and
+``--dist-profile`` only the build and dist_profile (the sharded and the
+single-device BA at one NCCL rank, timed in turns and profiled); neither
+prints a result line. Drift is against the scene's truth, bench_scene.truth_position
 (0.03 m a frame along the left camera's x axis). Prints the card's name and
 power limit, per-phase numbers, a JSON line {"kernels": [...]} and, as the
 last line, {"ok": true, "device": {...}}.
@@ -1680,6 +1710,451 @@ def cli_phase(tex, dev, medians):
     return total
 
 
+DIST_FRAMES, DIST_WARMUP = 30, 6
+DIST_W, DIST_L = 10, (256, 1024)
+DIST_VO_TOL, DIST_VIO_TOL = 5e-3, 1e-2   # tests/test_dist_estimator.py:66, :138
+DIST_TIMEOUT = 600.0
+
+
+def dist_solver_cases(mesh, L):
+    """name -> (sharded solve, single-device solve, pose of a result, prior
+    of a result or None) of the four window solvers on W=10 windows with L
+    landmarks: dryrun.window_problem (VO) and dryrun.vio_window_problem."""
+    import torch
+    from rsvio_tpu_torch.models import ba, vio_ba
+    from rsvio_tpu_torch.models.marginalization import empty_prior
+    from rsvio_tpu_torch.parallel import dist_ba, dist_vio_ba, dryrun
+
+    dev = mesh.device
+    prob = dryrun.window_problem(DIST_W, L, seed=1, device=dev)
+    vargs = dryrun.vio_window_problem(DIST_W, L, seed=1, device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+
+    def p6():
+        return empty_prior(DIST_W, 6, device=dev)
+
+    def p15():
+        return empty_prior(DIST_W, 15, device=dev)
+
+    return {
+        "ba": (lambda cfg=ba.BAConfig(): dist_ba.solve_ba_distributed(
+            mesh, *prob, cfg), lambda: ba.solve_ba(*prob),
+            lambda r: r.T_W_B, lambda r: None),
+        "ba_marg": (lambda: dist_ba.solve_ba_marginalized_distributed(
+            mesh, *prob, p6(), yes), lambda: ba.solve_ba_marginalized(
+                *prob, p6(), yes), lambda r: r[0].T_W_B, lambda r: r[1]),
+        "vio": (lambda cfg=vio_ba.VIOBAConfig():
+                dist_vio_ba.solve_vio_ba_distributed(mesh, *vargs, cfg),
+                lambda: vio_ba.solve_vio_ba(*vargs),
+                lambda r: r.state.T_W_B, lambda r: None),
+        "vio_marg": (lambda: dist_vio_ba.solve_vio_ba_marginalized_distributed(
+            mesh, *vargs, p15(), yes), lambda: vio_ba.solve_vio_ba_marginalized(
+                *vargs, p15(), yes), lambda r: r[0].state.T_W_B,
+            lambda r: r[1])}
+
+
+def dist_solvers(mesh):
+    """The four sharded solvers against the single-device ones at each L of
+    DIST_L, with the all-reduce calls and bytes of each solve; and the
+    calls and bytes of one LM iteration (a 20-iteration solve less a
+    10-iteration one, over 10) for ba and vio at each L."""
+    import torch
+    from rsvio_tpu_torch.models import ba, vio_ba
+
+    out = {}
+    for L in DIST_L:
+        cases = dist_solver_cases(mesh, L)
+        for name, (dist_fn, single_fn, pose, prior) in cases.items():
+            c0 = dict(mesh.counts)
+            rd = dist_fn()
+            torch.cuda.synchronize()
+            calls = mesh.counts["all_reduce_calls"] - c0["all_reduce_calls"]
+            nbytes = mesh.counts["all_reduce_bytes"] - c0["all_reduce_bytes"]
+            rs = single_fn()
+            ok = [bool((r if hasattr(r, "success") else r[0]).success)
+                  for r in (rd, rs)]
+            td, ts = pose(rd), pose(rs)
+            excess = float(((td - ts).abs() - (1e-4 + 1e-3 * ts.abs()))
+                           .max())
+            e = {"success": ok, "max_dT": float((td - ts).abs().max()),
+                 "tol_excess": excess, "allreduce_calls": calls,
+                 "allreduce_bytes": nbytes}
+            if prior(rd) is not None:
+                pd, ps = prior(rd), prior(rs)
+                scale = max(1.0, float(ps.H.abs().max()))
+                e["prior_valid"] = [bool(pd.valid), bool(ps.valid)]
+                e["max_dH_rel"] = float((pd.H - ps.H).abs().max()) / scale
+            out[f"{name}@{L}"] = e
+        for name, cfg10 in (("ba", ba.BAConfig(max_iterations=10)),
+                            ("vio", vio_ba.VIOBAConfig(max_iterations=10))):
+            c0 = dict(mesh.counts)
+            cases[name][0](cfg10)
+            calls = mesh.counts["all_reduce_calls"] - c0["all_reduce_calls"]
+            nbytes = mesh.counts["all_reduce_bytes"] - c0["all_reduce_bytes"]
+            full = out[f"{name}@{L}"]
+            full["per_iteration_calls"] = (full["allreduce_calls"] - calls) / 10
+            full["per_iteration_bytes"] = (full["allreduce_bytes"] - nbytes) / 10
+    return out
+
+
+def dist_collective_ms(mesh, runs=50):
+    """Host ms a call (synchronized after `runs` calls) of the mesh's
+    packed all-reduce on a W=10 solve's Schur payload ((W,W,6,6) and
+    (W,6) float32), and of one bare torch.distributed.all_reduce of the
+    same flat buffer: what a collective of the sharded solve costs."""
+    import torch
+    import torch.distributed as dist
+
+    dev = mesh.device
+    S = torch.zeros((DIST_W, DIST_W, 6, 6), device=dev)
+    b = torch.zeros((DIST_W, 6), device=dev)
+    flat = torch.zeros(S.numel() + b.numel(), device=dev)
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / runs
+
+    out = {"packed_ms": per_call(lambda: mesh.all_reduce_packed(S, b)),
+           "bare_ms": per_call(lambda: dist.all_reduce(flat,
+                                                       group=mesh.group))}
+    mesh.reset_counts()
+    return out
+
+
+def dist_inputs(dev):
+    """name -> (vio?, config, rig, frames, IMU buffers or None, state maker,
+    truth) of the dist phase's step runs: the main path's default
+    EstimatorConfig on the bench frames with and without marginalization,
+    and config/euroc_vio.yaml with --vio and marginalization on the vio
+    phase's euroc scene and IMU stream."""
+    from rsvio_tpu_torch.cli import run as cli_run
+    from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.models import estimator as est
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.utils import config as config_mod
+
+    tex = bench_scene.make_texture(0).to(dev)
+    frames = bench_scene.stereo_frames(tex, DIST_FRAMES)
+    rig = bench_scene.make_rig(dev)
+    cfg = est.EstimatorConfig()
+    runs = {name: (False, c, rig, frames, None,
+                   lambda c=c: est.init_state(c, device=dev),
+                   lambda k: bench_scene.truth_position(rig, k))
+            for name, c in (("vo", cfg), ("vo+marg", cfg._replace(
+                use_marginalization=True)))}
+    ycfg = config_mod.load_config(os.path.join(ROOT, "config",
+                                               "euroc_vio.yaml"))
+    ycfg.solver.marginalization = True
+    ecfg, vrig = config_mod.make_estimator_config(ycfg, kind="vio",
+                                                  device=dev)
+    vcfg = cli_run.vio_config(ycfg, ecfg)
+    kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
+    vframes = [bench_scene.render_rig(tex, vrig, kinds, k, ecfg.image_shape)
+               for k in range(DIST_FRAMES)]
+    traj = bench_trajectory(vrig)
+    imu, n_head, _, bufs = vio_imu_inputs(traj, DIST_FRAMES, vcfg.imu_params)
+    runs["euroc_vio+vio+marg"] = (
+        True, vcfg, vrig, vframes, bufs,
+        lambda: ev.initialize_vio_state(vcfg, imu["gyro"][:n_head],
+                                        imu["accel"][:n_head], device=dev),
+        traj)
+    return runs
+
+
+def dist_drive(step, make_state, rig, frames, bufs):
+    """Every frame of a run, synchronized after each: per-frame records
+    (T_W_B (16), n_tracked, n_alive, ba_success, pose_ok, is_keyframe),
+    the ms of the frames after DIST_WARMUP, and the final state."""
+    import torch
+
+    state = make_state()
+    rec, ms = [], []
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(frames):
+        t = time.perf_counter()
+        state, out = step(state, rig, a, b, *(bufs[k] if bufs else ()))
+        torch.cuda.synchronize()
+        if k >= DIST_WARMUP:
+            ms.append((time.perf_counter() - t) * 1e3)
+        rec.append(torch.cat([out.T_W_B.reshape(-1).double(), torch.stack([
+            out.n_tracked.double(), out.n_alive.double(),
+            out.ba_success.double(), out.pose_ok.double(),
+            out.is_keyframe.double()])]))
+    return torch.stack(rec).cpu().numpy(), ms, state
+
+
+def dist_step_summary(vio, r, ms, state, truth, window, solves):
+    """The floors' numbers (check_floors' keys) of a run, its frames/s and
+    blocked median over the frames after the warm-up, and its window
+    solves (count, median ms, all-reduce calls and bytes each)."""
+    import numpy as np
+
+    n = len(r)
+    if vio:
+        pos = np.concatenate([r[:, 3:12:4], r[:, 16:]], axis=1)
+        s = vio_metrics(pos, truth, state.vel.double().cpu().numpy(), window)
+    else:
+        q = range(DIST_WARMUP, n)
+        t_final = r[-1, 3:12:4]
+        t_truth = truth(n - 1).double().cpu().numpy()
+        s = {"tracked_mean": float(r[q, 16].mean()),
+             "bidir_kill_rate": float(np.mean(
+                 [1.0 - r[i, 16] / max(r[i - 1, 17], 1) for i in q])),
+             "t_final": t_final.tolist(), "t_truth": t_truth.tolist(),
+             "drift_rel": float(np.linalg.norm(t_final - t_truth)
+                                / max(np.linalg.norm(t_truth), 1e-9)),
+             "ba_fires_in_quality_pass": int(r[q, 18].sum()),
+             "pose_ok": bool(r[:, 19].all())}
+    s.update(frames=n, frames_per_s=len(ms) / (sum(ms) / 1e3),
+             blocked_median_ms=statistics.median(ms),
+             keyframes=int(r[:, 20].sum()), solves=len(solves["ms"]),
+             solves_ok=int(r[:, 18].sum()),
+             solve_ms_median=(statistics.median(solves["ms"])
+                              if solves["ms"] else None))
+    if solves["calls"]:
+        s["allreduce_calls_per_solve"] = statistics.median(solves["calls"])
+        s["allreduce_bytes_per_solve"] = statistics.median(solves["bytes"])
+    return s
+
+
+def timed_solvers(module, names, mesh=None):
+    """Wrap module.<name> for each of `names` so each call is synchronized
+    before and after and its ms (and the mesh's all-reduce calls and bytes)
+    recorded; returns (the record, a function that restores them)."""
+    import torch
+
+    rec = {"ms": [], "calls": [], "bytes": []}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(fn):
+        def f(*a, **kw):
+            torch.cuda.synchronize()
+            c0 = dict(mesh.counts) if mesh is not None else None
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            if mesh is not None:
+                rec["calls"].append(mesh.counts["all_reduce_calls"]
+                                    - c0["all_reduce_calls"])
+                rec["bytes"].append(mesh.counts["all_reduce_bytes"]
+                                    - c0["all_reduce_bytes"])
+            return out
+        return f
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return rec, restore
+
+
+def dist_rank(mesh):
+    """One rank of the dist phase (run by parallel.dryrun.run_ranks): the
+    solvers, then the step runs — rank 0 first drives the single-device
+    steps alone, then every rank the distributed ones (K1 launches counted
+    over the distributed runs only). Returns the summary (JSON) and the
+    distributed runs' per-frame poses."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from rsvio_tpu_torch.models import ba, vio_ba
+    from rsvio_tpu_torch.models import estimator as est
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.parallel import dist_ba, dist_vio_ba
+    from rsvio_tpu_torch.parallel.dist_estimator import (
+        make_distributed_estimator_step, make_distributed_vio_estimator_step)
+    from rsvio_tpu_torch.utils.precision import pin_fp32
+
+    pin_fp32()
+    dev = mesh.device
+    summary = {"rank": mesh.rank, "device": str(dev),
+               "collective": dist_collective_ms(mesh),
+               "solvers": dist_solvers(mesh)}
+    runs = dist_inputs(dev)
+    single = {}
+    if mesh.rank == 0:
+        for name, (vio, cfg, rig, frames, bufs, make_state, truth) in \
+                runs.items():
+            mod, names = ((vio_ba, ("solve_vio_ba", "solve_vio_ba_marginalized"))
+                          if vio else (ba, ("solve_ba",
+                                            "solve_ba_marginalized")))
+            rec, restore = timed_solvers(mod, names)
+            try:
+                step = (ev.make_vio_estimator_step(cfg) if vio
+                        else est.make_estimator_step(cfg))
+                single[name] = dist_drive(step, make_state, rig, frames, bufs)
+            finally:
+                restore()
+            window = (cfg.base if vio else cfg).window_size
+            summary.setdefault("single", {})[name] = dist_step_summary(
+                vio, *single[name][:2], single[name][2], truth, window, rec)
+    dist.barrier()
+    out = {}
+    reset_counts()
+    n_frames = 0
+    for name, (vio, cfg, rig, frames, bufs, make_state, truth) in \
+            runs.items():
+        mod, names = ((dist_vio_ba, ("solve_vio_ba_distributed",
+                                     "solve_vio_ba_marginalized_distributed"))
+                      if vio else (dist_ba, (
+                          "solve_ba_distributed",
+                          "solve_ba_marginalized_distributed")))
+        rec, restore = timed_solvers(mod, names, mesh)
+        try:
+            step = (make_distributed_vio_estimator_step(cfg, mesh) if vio
+                    else make_distributed_estimator_step(cfg, mesh))
+            r, ms, state = dist_drive(step, make_state, rig, frames, bufs)
+        finally:
+            restore()
+        n_frames += len(frames)
+        window = (cfg.base if vio else cfg).window_size
+        s = dist_step_summary(vio, r, ms, state, truth, window, rec)
+        if name in single:
+            rs, _, st_s = single[name]
+            s["max_dT_vs_single"] = float(np.abs(r[:, :16] - rs[:, :16])
+                                          .max())
+            s["keyframes_equal"] = bool((r[:, 20] == rs[:, 20]).all())
+            if vio:
+                s["max_dvel_vs_single"] = float(
+                    (state.vel - st_s.vel).abs().max())
+        summary.setdefault("dist", {})[name] = s
+        out[f"poses.{name}"] = r[:, :16]
+    summary["launches"] = counts()
+    summary["frames"] = n_frames
+    summary["mesh_counts"] = dict(mesh.counts)
+    out["summary"] = np.array(json.dumps(summary))
+    return out
+
+
+def dist_phase():
+    """The distributed layer (module docstring, phase 12): the NCCL run at
+    one rank per card and the gloo run at 2 ranks on card 0. Returns the
+    K1 launches of both runs' distributed steps, all ranks."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.parallel import dryrun
+
+    total = 0
+    for backend, n in (("nccl", torch.cuda.device_count()), ("gloo", 2)):
+        t0 = time.perf_counter()
+        res = dryrun.run_ranks(dist_rank, n, backend=backend,
+                               devices="cuda", timeout=DIST_TIMEOUT)
+        sums = [json.loads(str(r["summary"])) for r in res]
+        tag = f"dist[{backend} x{n}]"
+        s0 = sums[0]
+        for name, e in s0["solvers"].items():
+            check(all(e["success"]), f"{tag}: solver {name} failed {e}")
+            check(e["tol_excess"] <= 0.0,
+                  f"{tag}: solver {name} poses beyond 1e-3 rel + 1e-4 abs "
+                  f"of the single-device solve: {e}")
+            if "max_dH_rel" in e:
+                check(all(e["prior_valid"]) and e["max_dH_rel"] <= 5e-3,
+                      f"{tag}: solver {name} prior: {e}")
+        for name in ("ba", "vio"):
+            per = [s0["solvers"][f"{name}@{L}"] for L in DIST_L]
+            check(len({(p["per_iteration_calls"], p["per_iteration_bytes"])
+                       for p in per}) == 1,
+                  f"{tag}: {name} all-reduce per iteration differs with L: "
+                  f"{per}")
+        for name, s in s0["dist"].items():
+            vio = "vio" in name
+            tol = DIST_VIO_TOL if vio else DIST_VO_TOL
+            check_floors(f"{tag}[{name}]", s)
+            if vio:
+                check(s["vel_err"] <= VIO_VEL_TOL,
+                      f"{tag}[{name}]: velocity error {s['vel_err']}")
+            check(s["max_dT_vs_single"] <= tol and s["keyframes_equal"],
+                  f"{tag}[{name}]: {s['max_dT_vs_single']} from the "
+                  f"single-device step (tol {tol}), keyframes equal "
+                  f"{s['keyframes_equal']}")
+            if vio:
+                check(s["max_dvel_vs_single"] <= tol,
+                      f"{tag}[{name}]: velocity {s['max_dvel_vs_single']} "
+                      f"from the single-device step")
+            check(s["solves_ok"] >= 1, f"{tag}[{name}]: no sharded solve")
+        for r in res[1:]:
+            for k, v in res[0].items():
+                if k.startswith("poses."):
+                    check(np.array_equal(r[k], v),
+                          f"{tag}: {k} differs between ranks")
+        for s in sums:
+            check(s["launches"] == {"klt_bidir": 2 * s["frames"],
+                                    "klt_bidir_rot": 0, "klt_level": 0},
+                  f"{tag}: rank {s['rank']} launches {s['launches']} for "
+                  f"{s['frames']} frames")
+            total += s["launches"]["klt_bidir"]
+        print(f"{tag}: " + json.dumps({
+            "ranks": n, "seconds": time.perf_counter() - t0,
+            "collective": [s["collective"] for s in sums],
+            "solvers": s0["solvers"], "single": s0["single"],
+            "dist": {f"rank{s['rank']}": s["dist"] for s in sums},
+            "launches": [s["launches"] for s in sums],
+            "mesh_counts": [s["mesh_counts"] for s in sums]}), flush=True)
+    return total
+
+
+def dist_profile(dev, runs=5):
+    """One NCCL rank made in this process: the W=10, L=256 window's
+    sharded BA (dist_ba) and single-device BA in turns (single, dist,
+    dist, single), each `runs` solves synchronized at the end for the wall
+    ms a solve; then torch.profiler over `runs` solves of each, printing
+    the host ops by self CPU time and the device time in all. Prints no
+    result line."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from rsvio_tpu_torch.models import ba
+    from rsvio_tpu_torch.parallel import dist_ba, dryrun
+    from rsvio_tpu_torch.parallel import mesh as mesh_mod
+
+    m = mesh_mod.make_mesh(backend="nccl")
+    try:
+        prob = dryrun.window_problem(DIST_W, DIST_L[0], seed=1, device=dev)
+        solves = {"single": lambda: ba.solve_ba(*prob),
+                  "dist": lambda: dist_ba.solve_ba_distributed(m, *prob)}
+
+        def wall_ms(fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / runs
+
+        for fn in solves.values():
+            fn()
+        turns = {name: [] for name in solves}
+        for name in ("single", "dist", "dist", "single"):
+            turns[name].append(wall_ms(solves[name]))
+        print("dist_profile: wall ms a solve " + json.dumps(turns),
+              flush=True)
+        for name, fn in solves.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(runs):
+                    fn()
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            device_us = sum(e.self_device_time_total for e in ka)
+            cpu_us = sum(e.self_cpu_time_total for e in ka)
+            print(f"dist_profile[{name}]: {runs} solves, self CPU "
+                  f"{cpu_us / 1e3:.1f} ms, device {device_us / 1e3:.1f} ms",
+                  flush=True)
+            print(ka.table(sort_by="self_cpu_time_total", row_limit=25),
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def kernel_entry(name, launches, rows, extra=None):
     r0 = rows[0]
     e = {"name": name, "route": "cuda", "source": SOURCE,
@@ -1736,6 +2211,9 @@ def main():
     if "--cli-ab" in sys.argv[1:]:
         cli_ab(tex, dev)
         return 0
+    if "--dist-profile" in sys.argv[1:]:
+        dist_profile(dev)
+        return 0
 
     seconds = {}
 
@@ -1757,6 +2235,7 @@ def main():
     option_launches = phase("options", options_phase, tex, frames, dev)
     vio_launches = phase("vio", vio_phase, tex, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
+    dist_launches = phase("dist", dist_phase)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
@@ -1770,7 +2249,8 @@ def main():
                       "launches_configs": config_launches,
                       "launches_options": option_launches,
                       "launches_vio": vio_launches,
-                      "launches_cli": cli_launches}),
+                      "launches_cli": cli_launches,
+                      "launches_dist": dist_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],

@@ -9,6 +9,15 @@ gauge-fixed, LM accept/reject with rollback, and per-observation weights
 (``apply_obs_weights``), and ``solve_ba_marginalized``: the same solve
 with a marginalization prior over the poses, producing the next prior.
 
+Both solvers take a ``reduce`` hook: every sum over landmarks the LM loop
+needs whole (the pose blocks and cost, the Schur system, the step's
+validity vote and metric pieces, the chi^2 regate's counts, the
+observability counts and the final finiteness vote) goes through one call
+``reduce(*tensors) -> tensors``. It is the identity on one device;
+parallel.dist_ba passes the mesh's packed all-reduce, so the same loop
+solves one landmark shard per rank (JAX's copies of the loop in
+rsvio_tpu/parallel/dist_ba.py pack their ``psum``s at the same points).
+
 Two deliberate differences of form, same results:
   * The JAX ``lax.while_loop`` with early exit becomes a fixed-trip loop of
     ``max_iterations`` iterations that freezes the whole carry once ``done``
@@ -153,6 +162,11 @@ def _inv3x3(M):
     return adj / det_safe[..., None, None], torch.abs(det) > 1e-12
 
 
+def local_reduce(*tensors):
+    """The identity reduction of a single-device solve."""
+    return tensors
+
+
 def _clamped_diag(H):
     return torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-8)
 
@@ -167,10 +181,10 @@ def cholesky_solve_or_nan(S, b):
     return torch.where(info == 0, x, torch.full_like(x, torch.nan))
 
 
-def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
-    """Damped Schur-complement solve of the BA normal equations, pose 0
-    gauge-fixed. Inactive landmarks get identity blocks and a zero update.
-    Returns (delta_pose (W,6), delta_lm (L,3), ok)."""
+def _schur_step(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active, reduce):
+    """schur_solve's work with the Schur system (S, b) reduced over the
+    landmark shards. Returns (delta_pose, delta_lm, delta_pose finite,
+    this shard's landmark step valid): the caller votes on the last."""
     W = H_pp.shape[0]
     dtype, dev = H_pp.dtype, H_pp.device
     dp = _clamped_diag(H_pp)                          # (W,6)
@@ -185,10 +199,11 @@ def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
 
     H_ll_inv, inv_ok = _inv3x3(H_ll_d)
     A = torch.einsum("wlij,ljk->wlik", H_pl, H_ll_inv)
-    S_blocks = -torch.einsum("wlik,vljk->wvij", A, H_pl)
+    S_blocks, b_l = reduce(-torch.einsum("wlik,vljk->wvij", A, H_pl),
+                           torch.einsum("wlik,lk->wi", A, g_l))
     ar = torch.arange(W, device=dev)
     S_blocks[ar, ar] += H_pp_d
-    b_red = -(g_p - torch.einsum("wlik,lk->wi", A, g_l))     # (W,6)
+    b_red = -(g_p - b_l)                                     # (W,6)
     S = S_blocks.permute(0, 2, 1, 3).reshape(W * 6, W * 6)
     b = b_red.reshape(W * 6)
     # Gauge fix: identity rows/cols for pose 0, zero rhs -> delta0 = 0.
@@ -201,9 +216,41 @@ def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
     delta_l = torch.einsum("lij,lj->li", H_ll_inv, rhs_l)
     delta_l = torch.where(lm_active[:, None], delta_l,
                           torch.zeros_like(delta_l))
-    ok = (torch.isfinite(delta_p).all() & torch.isfinite(delta_l).all()
-          & (inv_ok | ~lm_active).all())
-    return delta_p, delta_l, ok
+    return (delta_p, delta_l, torch.isfinite(delta_p).all(),
+            torch.isfinite(delta_l).all() & (inv_ok | ~lm_active).all())
+
+
+def schur_solve(H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active):
+    """Damped Schur-complement solve of the BA normal equations, pose 0
+    gauge-fixed. Inactive landmarks get identity blocks and a zero update.
+    Returns (delta_pose (W,6), delta_lm (L,3), ok)."""
+    delta_p, delta_l, ok_p, ok_l = _schur_step(
+        H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active, local_reduce)
+    return delta_p, delta_l, ok_p & ok_l
+
+
+def _step_vote(reduce, ok_p, ok_l, delta_l, g_l_m, d_l):
+    """One reduction for the step: the validity vote over the shards and
+    the landmark pieces of the step norm and the observer metrics,
+    (ok_step, |dl|^2, |g_l|^2, g_l.dl, sum d_l dl^2), the step pieces
+    zero where the step is rejected."""
+    n_bad, dl_sq, gl_sq, gl_dl, dl_pred = reduce(
+        (~ok_l).to(torch.int32), (delta_l ** 2).sum(), (g_l_m ** 2).sum(),
+        (g_l_m * delta_l).sum(), (d_l * delta_l ** 2).sum())
+    ok_step = ok_p & (n_bad == 0)
+    zero = torch.zeros_like(dl_sq)
+    return (ok_step, torch.where(ok_step, dl_sq, zero), gl_sq,
+            torch.where(ok_step, gl_dl, zero),
+            torch.where(ok_step, dl_pred, zero))
+
+
+def finite_vote(reduce, replicated_ok, lm_active, lms):
+    """The numerical-health gate: the replicated state finite and, on
+    every shard, the active landmarks."""
+    bad, = reduce((~torch.isfinite(torch.where(
+        lm_active[:, None], lms, torch.zeros_like(lms))).all())
+        .to(torch.int32))
+    return replicated_ok & (bad == 0)
 
 
 def _sel(c, new, old):
@@ -216,21 +263,25 @@ def _sel(c, new, old):
 
 
 def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
-             cfg: BAConfig = BAConfig(), obs_weight=None) -> BAResult:
+             cfg: BAConfig = BAConfig(), obs_weight=None,
+             reduce=local_reduce) -> BAResult:
     """Sliding-window bundle adjustment.
 
     T_W_B (W,4,4) keyframe poses, T_C_B (2,4,4) stereo extrinsics,
     landmarks (L,3), obs (W,2,L,2) normalized observations, obs_mask
     (W,2,L), lm_valid (L,), optional obs_weight (W,L) per-observation
-    sqrt-weights. On failure the inputs come back unchanged.
+    sqrt-weights. On failure the inputs come back unchanged. `reduce`: the
+    landmark-shard reduction (module docstring); with a mesh's, the
+    landmark arguments are this rank's shard and so are the returned
+    landmarks.
     """
     dtype, dev = T_W_B.dtype, T_W_B.device
     W = T_W_B.shape[0]
     lm_active0 = lm_span_gate(stereo_observability_mask(obs_mask, lm_valid),
                               obs_mask, cfg.min_lm_span)
     mask0 = obs_mask & lm_active0[None, None, :]
-    n_blocks = mask0.sum()
-    n_vars = (W - 1) * 6 + 3 * lm_active0.sum()
+    n_blocks, n_act0 = reduce(mask0.sum(), lm_active0.sum())
+    n_vars = (W - 1) * 6 + 3 * n_act0
     attempt = (n_blocks >= cfg.min_residual_blocks) & (n_blocks * 2 >= n_vars)
 
     T_B_W0 = lie.se3_inverse(T_W_B)
@@ -240,7 +291,9 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         if obs_weight is not None:
             lin = apply_obs_weights(lin, obs_weight)
         r_sq = (lin.r ** 2).sum(-1)
-        return build_normal_equations(lin), lin.cost.sum(), r_sq
+        H_pp, H_ll, H_pl, g_p, g_l = build_normal_equations(lin)
+        H_pp, g_p, cost = reduce(H_pp, g_p, lin.cost.sum())
+        return (H_pp, H_ll, H_pl, g_p, g_l), cost, r_sq
 
     sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0)
 
@@ -257,11 +310,15 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     zero = torch.zeros((), dtype=dtype, device=dev)
 
     # Fixed trip count; an iteration after `done` leaves the carry as it was.
+    # Every rank makes the same reductions in every iteration.
     for _ in range(cfg.max_iterations):
         live = ~done
         H_pp, H_ll, H_pl, g_p, g_l = sys
-        delta_p, delta_l, ok_step = schur_solve(
-            H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active)
+        delta_p, delta_l, ok_p, ok_l = _schur_step(
+            H_pp, H_ll, H_pl, g_p, g_l, lam, lm_active, reduce)
+        ok_step, dl_sq, gl_sq, gl_dl, dl_pred = _step_vote(
+            reduce, ok_p, ok_l, delta_l,
+            torch.where(lm_active[:, None], g_l, zero), _clamped_diag(H_ll))
         if cfg.translation_only:
             delta_p = torch.cat([delta_p[:, :3],
                                  torch.zeros_like(delta_p[:, 3:])], dim=1)
@@ -276,14 +333,18 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         if cfg.chi2_gate > 0.0:
             # Outlier gate after chi2_gate_iter accepted iterations, with the
             # same under-constraint guard as the reference (both branches
-            # computed, one selected).
+            # computed, one selected). The observer's landmark gradient
+            # pieces follow the gated landmark set where the gate takes.
             do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
             m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
             act = stereo_observability_mask(m, lm_valid)
             m = m & act[None, None, :]
-            n_b = m.sum()
+            g_l_g = torch.where(act[:, None], g_l, zero)
+            n_b, n_a, gl_sq_g, gl_dl_g = reduce(
+                m.sum(), act.sum(), (g_l_g ** 2).sum(),
+                (g_l_g * delta_l).sum())
             guard = ((n_b >= cfg.min_residual_blocks)
-                     & (2 * n_b >= (W - 1) * 6 + 3 * act.sum()))
+                     & (2 * n_b >= (W - 1) * 6 + 3 * n_a))
             m = torch.where(guard, m, mask)
             act = torch.where(guard, act, lm_active)
             sys_g, cost_g, _ = lin_sys(T_new, lms_new, m)
@@ -291,19 +352,18 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
             lm_active_n = torch.where(do_gate, act, lm_active)
             sys_new = _sel(do_gate, sys_g, sys_new)
             new_cost = torch.where(do_gate, cost_g, new_cost)
+            gl_sq = torch.where(do_gate & guard, gl_sq_g, gl_sq)
+            gl_dl = torch.where(do_gate & guard, gl_dl_g, gl_dl)
         n_acc_n = n_acc + accept.to(torch.int32)
 
         cost_conv = accept & (torch.abs(cost - new_cost)
                               <= cfg.cost_tol * torch.clamp(cost, min=1e-12))
-        step_norm = torch.sqrt((delta_p ** 2).sum() + (delta_l ** 2).sum())
+        step_norm = torch.sqrt((delta_p ** 2).sum() + dl_sq)
         param_conv = accept & (step_norm <= cfg.param_tol)
-        g_l_m = torch.where(lm_active_n[:, None], g_l, zero)
-        g_norm = torch.sqrt((g_p ** 2).sum() + (g_l_m ** 2).sum())
+        g_norm = torch.sqrt((g_p ** 2).sum() + gl_sq)
         d_p = _clamped_diag(H_pp)
-        d_l = _clamped_diag(H_ll)
-        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum()
-                             + (d_l * delta_l ** 2).sum())
-                      - ((g_p * delta_p).sum() + (g_l_m * delta_l).sum()))
+        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum() + dl_pred)
+                      - ((g_p * delta_p).sum() + gl_dl))
         rho = step_quality(cost, new_cost, pred)
         row = metrics_row(new_cost, g_norm, lam, step_norm, rho, accept)
         metrics = torch.where(
@@ -329,9 +389,7 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
     status = torch.where(attempt, status, torch.full_like(status,
                                                           STATUS_SKIPPED))
-    finite = (torch.isfinite(T_B_W).all()
-              & torch.isfinite(torch.where(lm_active[:, None], lms,
-                                           zero)).all())
+    finite = finite_vote(reduce, torch.isfinite(T_B_W).all(), lm_active, lms)
     success = attempt & (status != STATUS_FAILED) & finite
     T_W_B_out = torch.where(success, lie.se3_inverse(T_B_W), T_W_B)
     lms_out = torch.where(success, lms, landmarks)
@@ -342,7 +400,8 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
 def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
                           prior: MargPrior, will_evict,
-                          cfg: BAConfig = BAConfig(), obs_weight=None):
+                          cfg: BAConfig = BAConfig(), obs_weight=None,
+                          reduce=local_reduce):
     """``solve_ba`` with a pose prior, and the next prior.
 
     prior: MargPrior over the W poses (6-dim blocks in the T_B_W
@@ -353,15 +412,18 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     at the result (damped with lambda 1e-5) and is rolled one slot for the
     caller's window roll; otherwise the input prior comes back unchanged.
     Same fixed-trip LM as ``solve_ba``, with the prior's terms in every
-    system and its cost in every cost. Returns (BAResult, new prior).
+    system and its cost in every cost. `reduce` as in ``solve_ba``: the
+    prior lives on the (replicated) poses, so it adds no reduction, and the
+    next prior comes from the reduced system. Returns (BAResult, new
+    prior).
     """
     dtype, dev = T_W_B.dtype, T_W_B.device
     W = T_W_B.shape[0]
     lm_active0 = lm_span_gate(stereo_observability_mask(obs_mask, lm_valid),
                               obs_mask, cfg.min_lm_span)
     mask0 = obs_mask & lm_active0[None, None, :]
-    n_blocks = mask0.sum()
-    n_vars = (W - 1) * 6 + 3 * lm_active0.sum()
+    n_blocks, n_act0 = reduce(mask0.sum(), lm_active0.sum())
+    n_vars = (W - 1) * 6 + 3 * n_act0
     attempt = (n_blocks >= cfg.min_residual_blocks) & (n_blocks * 2 >= n_vars)
     fix_first = ~prior.valid
     no_extra = torch.zeros((W, 0), dtype=dtype, device=dev)
@@ -379,12 +441,13 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         if obs_weight is not None:
             lin = apply_obs_weights(lin, obs_weight)
         H_pp, H_ll, H_pl, g_p, g_l = build_normal_equations(lin)
+        H_pp, g_p, vis = reduce(H_pp, g_p, lin.cost.sum())
         H_add, g_add, pcost = prior_terms(prior, lie.se3_inverse(T_B_W),
                                           no_extra)
         g_l_m = torch.where(lm_active[:, None], g_l, zero)
         H_pl_m = torch.where(lm_active[None, :, None, None], H_pl, zero)
         sys = (H_pp, H_ll, H_pl_m, g_p, g_l_m, H_add, g_add)
-        return sys, lin.cost.sum() + pcost, (lin.r ** 2).sum(-1)
+        return sys, vis + pcost, (lin.r ** 2).sum(-1)
 
     def damp_reduce(sys, lam, lm_active):
         """The damped, prior-augmented reduced camera system S, b = -grad,
@@ -395,11 +458,11 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         H_ll_d = torch.where(lm_active[:, None, None], H_ll_d, eye3)
         H_ll_inv, inv_ok = _inv3x3(H_ll_d)
         A = torch.einsum("wlij,ljk->wlik", H_pl_m, H_ll_inv)
-        S_blocks = -torch.einsum("wlik,vljk->wvij", A, H_pl_m)
+        S_blocks, b_l = reduce(-torch.einsum("wlik,vljk->wvij", A, H_pl_m),
+                               torch.einsum("wlik,lk->wi", A, g_l_m))
         S_blocks[ar, ar] += H_pp_d
         S = S_blocks.permute(0, 2, 1, 3).reshape(W * 6, W * 6) + H_add
-        b = (-(g_p - torch.einsum("wlik,lk->wi", A, g_l_m))).reshape(W * 6) \
-            - g_add
+        b = (-(g_p - b_l)).reshape(W * 6) - g_add
         return S, b, H_ll_inv, inv_ok
 
     def solve_from_system(S, b):
@@ -431,9 +494,10 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         rhs_l = -g_l_m - torch.einsum("wlij,wi->lj", H_pl_m, delta_p)
         delta_l = torch.einsum("lij,lj->li", H_ll_inv, rhs_l)
         delta_l = torch.where(lm_active[:, None], delta_l, zero)
-        ok_step = (torch.isfinite(delta_p).all()
-                   & torch.isfinite(delta_l).all()
-                   & (inv_ok | ~lm_active).all())
+        ok_step, dl_sq, gl_sq, gl_dl, dl_pred = _step_vote(
+            reduce, torch.isfinite(delta_p).all(),
+            torch.isfinite(delta_l).all() & (inv_ok | ~lm_active).all(),
+            delta_l, g_l_m, _clamped_diag(H_ll))
         delta_p = torch.where(ok_step, delta_p, zero)
         delta_l = torch.where(ok_step, delta_l, zero)
         T_new = lie.se3_retract_split(T_B_W, delta_p)
@@ -450,9 +514,9 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
             m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
             act = stereo_observability_mask(m, lm_valid)
             m = m & act[None, None, :]
-            n_b = m.sum()
+            n_b, n_a = reduce(m.sum(), act.sum())
             guard = ((n_b >= cfg.min_residual_blocks)
-                     & (2 * n_b >= (W - 1) * 6 + 3 * act.sum()))
+                     & (2 * n_b >= (W - 1) * 6 + 3 * n_a))
             m = torch.where(guard, m, mask)
             act = torch.where(guard, act, lm_active)
             sys_g, cost_g, _ = lin_sys(T_new, lms_new, m, act)
@@ -464,17 +528,14 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
         cost_conv = accept & (torch.abs(cost - new_cost)
                               <= cfg.cost_tol * torch.clamp(cost, min=1e-12))
-        step_norm = torch.sqrt((delta_p ** 2).sum() + (delta_l ** 2).sum())
+        step_norm = torch.sqrt((delta_p ** 2).sum() + dl_sq)
         param_conv = accept & (step_norm <= cfg.param_tol)
         # Observer columns: the prior-augmented gradient and gain ratio.
         g_full = g_p.reshape(-1) + g_add
-        g_norm = torch.sqrt((g_full ** 2).sum() + (g_l_m ** 2).sum())
+        g_norm = torch.sqrt((g_full ** 2).sum() + gl_sq)
         d_p = _clamped_diag(H_pp)
-        d_l = _clamped_diag(H_ll)
-        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum()
-                             + (d_l * delta_l ** 2).sum())
-                      - ((g_full * delta_p.reshape(-1)).sum()
-                         + (g_l_m * delta_l).sum()))
+        pred = 0.5 * (lam * ((d_p * delta_p ** 2).sum() + dl_pred)
+                      - ((g_full * delta_p.reshape(-1)).sum() + gl_dl))
         rho = step_quality(cost, new_cost, pred)
         row = metrics_row(new_cost, g_norm, lam, step_norm, rho, accept)
         metrics = torch.where(
@@ -500,9 +561,7 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
     status = torch.where(attempt, status, torch.full_like(status,
                                                           STATUS_SKIPPED))
-    finite = (torch.isfinite(T_B_W).all()
-              & torch.isfinite(torch.where(lm_active[:, None], lms,
-                                           zero)).all())
+    finite = finite_vote(reduce, torch.isfinite(T_B_W).all(), lm_active, lms)
     success = attempt & (status != STATUS_FAILED) & finite
     T_W_B_out = torch.where(success, lie.se3_inverse(T_B_W), T_W_B)
     lms_out = torch.where(success, lms, landmarks)

@@ -502,8 +502,10 @@ def _count(probe, key, mask):
         probe[key] = probe.get(key, 0) + mask.to(torch.int64).sum()
 
 
-def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
+def _build_stages(cfg: EstimatorConfig, draws, probe=None,
+                  window_solvers=None) -> Stages:
     check_config(cfg)
+    solvers = ba_mod if window_solvers is None else window_solvers
     W = cfg.window_size
     levels = cfg.frontend.klt.levels
 
@@ -614,15 +616,15 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
         next marginalization prior)."""
         ba_w = prep.obs_wt if cfg.use_obs_weights else None
         if cfg.use_marginalization:
-            res, new_prior = ba_mod.solve_ba_marginalized(
+            res, new_prior = solvers.solve_ba_marginalized(
                 prep.kf_T, rig.T_C_B, prep.lm, prep.obs_w, prep.eff_mask,
                 prep.lm_valid, marg_prior, prep.will_evict, cfg.ba,
                 obs_weight=ba_w)
             _count(probe, "priors_made", prep.will_evict & res.success)
         else:
-            res = ba_mod.solve_ba(prep.kf_T, rig.T_C_B, prep.lm, prep.obs_w,
-                                  prep.eff_mask, prep.lm_valid, cfg.ba,
-                                  obs_weight=ba_w)
+            res = solvers.solve_ba(prep.kf_T, rig.T_C_B, prep.lm,
+                                   prep.obs_w, prep.eff_mask, prep.lm_valid,
+                                   cfg.ba, obs_weight=ba_w)
             new_prior = marg_prior
         return (res.T_W_B, res.landmarks, res.success, res.iterations,
                 res.final_cost, new_prior)
@@ -716,7 +718,7 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None) -> Stages:
 
 
 def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
-                        probe=None):
+                        probe=None, window_solvers=None):
     """Build the per-frame step (state, rig, img0, img1) -> (state, out).
     Pins full fp32 (``utils.precision.pin_fp32``) and validates the config
     when called. `draws(frame_id, shape, dtype, device)` gives the RANSAC
@@ -728,9 +730,12 @@ def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
     at birth, held to the cull threshold after an accepted solve, and
     culled), "flow_tracked" (tracks carrying an accumulated scene flow
     after a keyframe's gate), "priors_made" (marginalized solves that
-    produced the next prior)."""
+    produced the next prior). `window_solvers`: the window solve's
+    functions, an object with ``solve_ba`` and ``solve_ba_marginalized``
+    of models.ba's signatures (default models.ba itself;
+    parallel.dist_estimator passes the landmark-sharded ones)."""
     pin_fp32()
-    st = _build_stages(cfg, draws, probe)
+    st = _build_stages(cfg, draws, probe, window_solvers)
 
     def step(state: EstimatorState, rig: CameraRig, img0, img1):
         pyr0, pyr1 = st.frames(img0, img1)
@@ -748,14 +753,14 @@ STAGE_NAMES = ("frame_creation", "patch_tracking", "motion_tracking",
 
 
 def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
-                              probe=None):
+                              probe=None, window_solvers=None):
     """The step with a synchronized per-stage split: returns
     step(state, rig, img0, img1) -> (state, out, times_ms) with times_ms a
     dict over STAGE_NAMES. Same stages, arguments and results as
     make_estimator_step; the syncs make it slower, so use it for diagnosis.
     """
     pin_fp32()
-    st = _build_stages(cfg, draws, probe)
+    st = _build_stages(cfg, draws, probe, window_solvers)
 
     def sync(device):
         if device.type == "cuda":

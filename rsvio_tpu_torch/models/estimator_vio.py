@@ -302,13 +302,14 @@ class VIOStages(NamedTuple):
 
 
 def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
-                      probe=None) -> VIOStages:
+                      probe=None, window_solvers=None) -> VIOStages:
     """The per-frame VIO step as named stage functions (JAX's
     _build_vio_stages). stage_front and stage_kf_pre take, beyond JAX's
     arguments, the host bound of their preintegration loops."""
     b = cfg.base
     W = b.window_size
     B_cap = cfg.interval_buf
+    solvers = vio_ba if window_solvers is None else window_solvers
     est_mod.check_config(b)
     if ((cfg.vio.bias_gyro_weight_desert > 0.0
          or cfg.vio.bias_accel_weight_desert > 0.0)
@@ -487,14 +488,14 @@ def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
         st = vio_ba.VIOState(T_W_B=prep.kf_T, vel=prep.kf_v, bg=prep.kf_bg,
                              ba=prep.kf_ba)
         if b.use_marginalization:
-            res, new_prior = vio_ba.solve_vio_ba_marginalized(
+            res, new_prior = solvers.solve_vio_ba_marginalized(
                 st, rig.T_C_B, prep.lm, prep.obs_w, prep.eff_mask,
                 prep.lm_valid, prep.kf_preint, prep.kf_preint_valid,
                 marg_prior, prep.will_evict, cfg.vio, obs_weight=ba_w,
                 bias_alpha=b_alpha)
             _count(probe, "priors_made", prep.will_evict & res.success)
         else:
-            res = vio_ba.solve_vio_ba(
+            res = solvers.solve_vio_ba(
                 st, rig.T_C_B, prep.lm, prep.obs_w, prep.eff_mask,
                 prep.lm_valid, prep.kf_preint, prep.kf_preint_valid,
                 cfg.vio, obs_weight=ba_w, bias_alpha=b_alpha)
@@ -548,17 +549,20 @@ def _imu_inputs(gyro, accel, dts, imu_mask, dtype, dev):
 
 
 def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
-                            probe=None):
+                            probe=None, window_solvers=None):
     """Build the per-frame VIO step
     (state, rig, img0, img1, gyro (S,3), accel (S,3), dts (S,),
     imu_mask (S,)) -> (state, FrameOutput). Pins full fp32 and validates
     the config when called. `draws` and `probe` as in
     make_estimator_step ("priors_made" counts the marginalized solves that
-    produced the next prior)."""
+    produced the next prior). `window_solvers`: an object with
+    ``solve_vio_ba`` and ``solve_vio_ba_marginalized`` of models.vio_ba's
+    signatures (default models.vio_ba; parallel.dist_estimator passes the
+    landmark-sharded ones)."""
     pin_fp32()
     b = cfg.base
     W = b.window_size
-    vst = _build_vio_stages(cfg, draws, probe)
+    vst = _build_vio_stages(cfg, draws, probe, window_solvers)
     use_kill = b.pnp.ransac_hypotheses > 0 and b.pnp_ransac_kill
 
     def step(state: VIOEstimatorState, rig: CameraRig, img0, img1,

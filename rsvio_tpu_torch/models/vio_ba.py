@@ -15,6 +15,13 @@ factor pieces. The same design:
     of the window at once (_imu_linearize);
   * gauge: the first pose (6 dims) fixed, its velocity and biases free.
 
+The LM loop takes models/ba.py's ``reduce`` hook (the identity on one
+device; parallel.dist_vio_ba passes the mesh's all-reduce): the visual
+pose blocks and cost, the 6-dim Schur system, the step's vote and metric
+pieces, the regate's counts, the observability counts and the finiteness
+vote are reduced over landmark shards; the IMU and prior terms live on the
+(replicated) states and are not.
+
 Differences of form, same results, as in models/ba.py: a fixed-trip LM
 loop that freezes its carry once done (no host sync inside the solve), the
 chi^2 regate computed every iteration and selected on the device, and
@@ -305,10 +312,12 @@ def _extra(st: VIOState):
 
 def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
            preint: Preintegrated, preint_valid, cfg: VIOBAConfig,
-           fix_first: bool, obs_weight, bias_alpha, prior):
+           fix_first: bool, obs_weight, bias_alpha, prior,
+           reduce=ba_mod.local_reduce):
     """The LM solve shared by solve_vio_ba (prior None) and
-    solve_vio_ba_marginalized. Returns (VIOBAResult, final observation
-    mask, sqrt-informations)."""
+    solve_vio_ba_marginalized, and by their landmark-sharded versions
+    (`reduce`: the module docstring). Returns (VIOBAResult, final
+    observation mask, sqrt-informations)."""
     W = state.T_W_B.shape[0]
     dtype, dev = state.T_W_B.dtype, state.T_W_B.device
     b_scales = bias_desert_scales(cfg, bias_alpha, dtype)
@@ -326,9 +335,9 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
     mask0 = obs_mask & lm_active0[None, None, :]
     # Under-constrained refusal: residual rows (2 per visual block, 15 per
     # IMU interval) must cover the free variables.
-    n_vis0 = mask0.sum()
+    n_vis0, n_act0 = reduce(mask0.sum(), lm_active0.sum())
     attempt = ((n_vis0 + n_imu >= cfg.min_residual_blocks)
-               & (2 * n_vis0 + 15 * n_imu >= W * D - 6 + 3 * lm_active0.sum()))
+               & (2 * n_vis0 + 15 * n_imu >= W * D - 6 + 3 * n_act0))
 
     # Whitening depends only on the fixed preintegration: once per solve.
     sqrt_infos = _imu_sqrt_info(preint, cfg)
@@ -363,6 +372,7 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         the total cost and the per-observation squared residuals."""
         (Hii, Hjj, Hij, gi, gj, imu_cost), pr = terms
         H_pp6, H_ll, H_pl6, g_p6, g_l = ba_mod.build_normal_equations(lin)
+        H_pp6, g_p6, vis = reduce(H_pp6, g_p6, lin.cost.sum())
         H_ss = torch.zeros((W, W, D, D), dtype=dtype, device=dev)
         H_ss[ar, ar, :6, :6] = H_pp6
         g_s = torch.zeros((W, D), dtype=dtype, device=dev)
@@ -373,7 +383,7 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         H_ss[idx + 1, idx] += Hij.transpose(-1, -2)
         g_s[idx] += gi
         g_s[idx + 1] += gj
-        cost = lin.cost.sum() + imu_cost
+        cost = vis + imu_cost
         if pr is not None:
             H_add, g_add, pcost = pr
             H_ss = (H_ss.permute(0, 2, 1, 3).reshape(W * D, W * D) + H_add) \
@@ -390,7 +400,8 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
                            min=1e-8)                            # (W,D)
 
     def step(sys, lam, lm_active):
-        """Damp, reduce and solve: (delta_s (W,D), delta_l (L,3), ok)."""
+        """Damp, reduce and solve: (delta_s (W,D), delta_l (L,3), delta_s
+        finite, this shard's landmark step valid)."""
         H_ss, H_ll, H_pl6, g_s, g_l = sys
         H_ss = H_ss.clone()
         H_ss[ar, ar] += lam * torch.diag_embed(block_diag(H_ss))
@@ -398,10 +409,11 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         H_ll_d = torch.where(lm_active[:, None, None], H_ll_d, eye3)
         H_ll_inv, inv_ok = ba_mod._inv3x3(H_ll_d)
         A6 = torch.einsum("wlij,ljk->wlik", H_pl6, H_ll_inv)   # (W,L,6,3)
-        S6 = torch.einsum("wlik,vljk->wvij", A6, H_pl6)        # (W,W,6,6)
+        S6, b6 = reduce(torch.einsum("wlik,vljk->wvij", A6, H_pl6),
+                        torch.einsum("wlik,lk->wi", A6, g_l))  # (W,W,6,6)
         H_ss[:, :, :6, :6] -= S6
         b_red = -g_s
-        b_red[:, :6] += torch.einsum("wlik,lk->wi", A6, g_l)
+        b_red[:, :6] += b6
         S = H_ss.permute(0, 2, 1, 3).reshape(W * D, W * D)
         b = b_red.reshape(W * D)
         if fix_first:
@@ -411,9 +423,8 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         rhs_l = -g_l - torch.einsum("wlij,wi->lj", H_pl6, delta_s[:, :6])
         delta_l = torch.einsum("lij,lj->li", H_ll_inv, rhs_l)
         delta_l = torch.where(lm_active[:, None], delta_l, zero)
-        ok = (torch.isfinite(delta_s).all() & torch.isfinite(delta_l).all()
-              & (inv_ok | ~lm_active).all())
-        return delta_s, delta_l, ok
+        return (delta_s, delta_l, torch.isfinite(delta_s).all(),
+                torch.isfinite(delta_l).all() & (inv_ok | ~lm_active).all())
 
     sys0, cost0, _ = assemble(linearize_visual(state, landmarks, mask0),
                               state_terms(state), lm_active0)
@@ -433,7 +444,10 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
     # Fixed trip count; an iteration after `done` leaves the carry as it was.
     for _ in range(cfg.max_iterations):
         live = ~done
-        delta_s, delta_l, ok_step = step(sys, lam, lm_active)
+        delta_s, delta_l, ok_s, ok_l = step(sys, lam, lm_active)
+        ok_step, dl_sq, gl_sq, gl_dl, dl_pred = ba_mod._step_vote(
+            reduce, ok_s, ok_l, delta_l, sys[4],
+            ba_mod._clamped_diag(sys[1]))
         delta_s = torch.where(ok_step, delta_s, zero)
         delta_l = torch.where(ok_step, delta_l, zero)
         st_new = _retract_state(st, delta_s)
@@ -451,9 +465,9 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
             m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
             act = ba_mod.stereo_observability_mask(m, lm_valid)
             m = m & act[None, None, :]
-            n_b = m.sum()
+            n_b, n_a = reduce(m.sum(), act.sum())
             guard = ((n_b + n_imu >= cfg.min_residual_blocks)
-                     & (2 * n_b + 15 * n_imu >= W * D - 6 + 3 * act.sum()))
+                     & (2 * n_b + 15 * n_imu >= W * D - 6 + 3 * n_a))
             m = torch.where(guard, m, mask)
             act = torch.where(guard, act, lm_active)
             mf = m.to(dtype)
@@ -470,17 +484,15 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
         cost_conv = accept & (torch.abs(cost - new_cost)
                               <= cfg.cost_tol * torch.clamp(cost, min=1e-12))
-        step_norm = torch.sqrt((delta_s ** 2).sum() + (delta_l ** 2).sum())
+        step_norm = torch.sqrt((delta_s ** 2).sum() + dl_sq)
         param_conv = accept & (step_norm <= cfg.param_tol)
         # Observer columns: gradient norm and gain ratio of the damped
         # normal equations' prediction, from the current system.
-        g_s_u, g_l_u = sys[3], sys[4]
-        g_norm = torch.sqrt((g_s_u ** 2).sum() + (g_l_u ** 2).sum())
+        g_s_u = sys[3]
+        g_norm = torch.sqrt((g_s_u ** 2).sum() + gl_sq)
         d_s = block_diag(sys[0])
-        d_l = ba_mod._clamped_diag(sys[1])
-        pred = 0.5 * (lam * ((d_s * delta_s ** 2).sum()
-                             + (d_l * delta_l ** 2).sum())
-                      - ((g_s_u * delta_s).sum() + (g_l_u * delta_l).sum()))
+        pred = 0.5 * (lam * ((d_s * delta_s ** 2).sum() + dl_pred)
+                      - ((g_s_u * delta_s).sum() + gl_dl))
         rho = ba_mod.step_quality(cost, new_cost, pred)
         row = ba_mod.metrics_row(new_cost, g_norm, lam, step_norm, rho,
                                  accept)
@@ -507,10 +519,10 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
     status = torch.where(attempt, status,
                          torch.full_like(status, ba_mod.STATUS_SKIPPED))
     # Numerical-health gate: non-finite results roll back.
-    finite = (torch.isfinite(st.T_W_B).all() & torch.isfinite(st.vel).all()
-              & torch.isfinite(st.bg).all() & torch.isfinite(st.ba).all()
-              & torch.isfinite(torch.where(lm_active[:, None], lms,
-                                           zero)).all())
+    finite = ba_mod.finite_vote(
+        reduce, torch.isfinite(st.T_W_B).all() & torch.isfinite(st.vel).all()
+        & torch.isfinite(st.bg).all() & torch.isfinite(st.ba).all(),
+        lm_active, lms)
     success = attempt & (status != ba_mod.STATUS_FAILED) & finite
     res = VIOBAResult(state=ba_mod._sel(success, st, state),
                       landmarks=torch.where(success, lms, landmarks),
@@ -609,12 +621,22 @@ def solve_vio_ba_marginalized(state: VIOState, T_C_B, landmarks, obs,
     res, mask_f, sqrt_infos = _solve(
         state, T_C_B, landmarks, obs, obs_mask, lm_valid, preint,
         preint_valid, cfg, True, obs_weight, bias_alpha, prior)
+    return res, next_prior(res, T_C_B, obs[0], mask_f[0], preint,
+                           preint_valid, sqrt_infos[0], prior, will_evict,
+                           cfg, None if obs_weight is None else obs_weight[0])
+
+
+def next_prior(res: VIOBAResult, T_C_B, obs0, mask0, preint: Preintegrated,
+               preint_valid, sqrt_info0, prior: MargPrior, will_evict,
+               cfg: VIOBAConfig, obs_w0=None) -> MargPrior:
+    """solve_vio_ba_marginalized's returned prior: build_eviction_prior's
+    at the result where will_evict and the solve succeeded, else the
+    input prior. obs0, mask0, obs_w0: state 0's observations, final mask
+    and weights over all landmarks (res.landmarks')."""
     new_prior = build_eviction_prior(
-        res.state, res.landmarks, T_C_B, obs[0], mask_f[0],
-        Preintegrated(*(x[0] for x in preint)), preint_valid[0],
-        sqrt_infos[0], prior, cfg,
-        obs_w0=None if obs_weight is None else obs_weight[0])
+        res.state, res.landmarks, T_C_B, obs0, mask0,
+        Preintegrated(*(x[0] for x in preint)), preint_valid[0], sqrt_info0,
+        prior, cfg, obs_w0=obs_w0)
     do_new = will_evict & res.success
-    out_prior = MargPrior(*(torch.where(do_new, n, o)
-                            for n, o in zip(new_prior, prior)))
-    return res, out_prior
+    return MargPrior(*(torch.where(do_new, n, o)
+                       for n, o in zip(new_prior, prior)))

@@ -41,6 +41,15 @@ frame making exactly one host sync beyond the step's own (the batched read;
 the pinned upload adds none), the PNG reader's C++ unfilter built and held
 to its numpy version wherever the file runs (this test needs no card), and
 the checkpoint round trip on CUDA.
+
+The distributed layer (rsvio_tpu_torch/parallel): the four sharded window
+solvers on CUDA at world size 2 over gloo (both ranks on the card, spawned
+by dryrun.run_ranks) against the single-device CUDA solves (poses within
+1e-3 relative + 1e-4, priors' H within 5e-3 of max|H|, the ranks'
+poses bitwise equal); NCCL at world size 1 (the group made in this
+process) with one solve bitwise the single-device one; and the distributed
+VO step making as many host syncs per frame as the single-device step
+over NCCL, whose collectives add none.
 """
 
 import glob
@@ -62,6 +71,9 @@ from rsvio_tpu_torch.ops import cameras, klt, lie, projection, pyramid
 from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
 from rsvio_tpu_torch.ops.klt import KLTConfig
 from rsvio_tpu_torch.utils import config as config_mod
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_dist_ranks  # noqa: E402
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "config")
@@ -1245,3 +1257,80 @@ def test_vio_frame_syncs_equal_vo_step(dev):
         assert key in per_kind["vo"], (key, per_kind)
         assert counts == per_kind["vo"][key], (
             key, per_kind, where[("vo", key)], where[("vio", key)])
+
+
+# ------------------------------------------------------------ distributed
+
+@pytest.mark.gpu
+def test_sharded_solvers_gloo_two_ranks_on_cuda(dev, tmp_path):
+    from rsvio_tpu_torch.parallel import dryrun
+    res = dryrun.run_ranks(torch_dist_ranks.cuda_solver_parity, 2,
+                           backend="gloo", devices="cuda", timeout=300.0,
+                           workdir=str(tmp_path))
+    for name in ("ba", "ba_marg", "vio", "vio_marg"):
+        assert res[0][f"{name}.success"].all(), name
+        assert float(res[0][f"{name}.excess"]) <= 0.0, name
+        if f"{name}.dH" in res[0]:
+            assert float(res[0][f"{name}.dH"]) <= 5e-3, name
+        np.testing.assert_array_equal(res[0][f"{name}.T_W_B"],
+                                      res[1][f"{name}.T_W_B"])
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world-size-1 NCCL group in this process, destroyed after the
+    module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    from rsvio_tpu_torch.parallel import mesh as mesh_mod
+    m = mesh_mod.make_mesh(backend="nccl")
+    yield m
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_nccl_world_size_one_solve(nccl_mesh):
+    from rsvio_tpu_torch.parallel import dist_ba, dryrun
+    assert (nccl_mesh.size, nccl_mesh.backend) == (1, "nccl")
+    prob = dryrun.window_problem(10, 64, device=nccl_mesh.device)
+    c0 = dict(nccl_mesh.counts)
+    rd = dist_ba.solve_ba_distributed(nccl_mesh, *prob)
+    rs = ba_mod.solve_ba(*prob)
+    assert nccl_mesh.counts["all_reduce_calls"] > c0["all_reduce_calls"]
+    assert bool(rd.success)
+    for f in ("T_W_B", "landmarks", "final_cost", "iterations", "metrics"):
+        assert torch.equal(getattr(rd, f), getattr(rs, f)), f
+
+
+@pytest.mark.gpu
+def test_distributed_step_syncs_equal_single_step(nccl_mesh):
+    """Host syncs per frame (torch's sync debug mode), frame kind by frame
+    kind: the distributed VO step over NCCL at world size 1 makes exactly
+    as many as the single-device step (NCCL's collectives add none; over
+    gloo each collective stages through the host). Each sequence runs
+    twice and the second pass is counted."""
+    from rsvio_tpu_torch.parallel.dist_estimator import (
+        make_distributed_estimator_step)
+    dev = nccl_mesh.device
+    base, frames, shape = _small_scene(10)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    runs = {"single": est.make_estimator_step(base),
+            "dist": make_distributed_estimator_step(base, nccl_mesh)}
+    per_kind, where = {}, {}
+    for name, step in runs.items():
+        for counted in (False, True):
+            state = est.init_state(base, device=dev)
+            torch.cuda.synchronize()
+            for a, b in frames_d:
+                (state, out), syncs = _count_syncs(
+                    lambda: step(state, rig, a, b))
+                if counted:
+                    key = (bool(out.is_keyframe), bool(out.ba_success))
+                    per_kind.setdefault(name, {}).setdefault(
+                        key, set()).add(len(syncs))
+                    where.setdefault((name, key), syncs)
+    assert per_kind["dist"].get((True, True))
+    assert per_kind["dist"] == per_kind["single"], (
+        per_kind, {k: v for k, v in where.items() if k[1] == (True, True)})
