@@ -181,6 +181,24 @@ them. Phases, each of which raises on failure:
                rank and a sharded solve fired; prints frames/s, the
                blocked median and the median solve ms of both, and the
                all-reduce calls and bytes a solve.
+ 13. eval    — the evaluation harness (utils.evaluation.
+               run_synthetic_sequence, as tools/accuracy_matrix drives it)
+               at the matrix's full-width geometry (752x480, 6 levels, cell
+               50, margin 19, 256 slots, window 10) with its IMU noise and
+               biases and its per-scene seed, 80 frames at 20 Hz a run (the
+               matrix runs 160: cut for the phase's time): depth_6dof x
+               vo_fifo, held to tracked_mean >= 80, a BA success rate of 1
+               and drift <= 2 %; occlusion_6dof (a textured quad moving
+               2 m ahead of the rig) x vo_adapt, held to the RANSAC gate
+               cutting tracks (inliers < candidates) on at least one frame
+               and the track health dropping below 1 (the share of frames
+               with the gate cutting printed); occlusion_6dof x
+               vio_adapt, held to the scene-flow gate tracking or killing
+               at least one track. Every run: exactly 2 K1 launches a
+               frame and every pose finite; ATE, drift and frames/s
+               printed, not held on the occlusion runs (the transit's
+               outcome swings with the IMU-noise seed and the profile in
+               the JAX package itself, tools/accuracy_matrix.py:55-72).
 
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
@@ -2101,6 +2119,115 @@ def dist_phase():
     return total
 
 
+EVAL_FRAMES = 80       # tools/accuracy_matrix runs 160: cut for the time
+EVAL_FPS = 20.0
+EVAL_SEED = 7          # the matrix's --seed (per-scene rng: + crc32(scene))
+EVAL_RUNS = (("depth_6dof", "vo_fifo"), ("occlusion_6dof", "vo_adapt"),
+             ("occlusion_6dof", "vio_adapt"))
+# The JAX package's occlusion_6dof x vio_adapt over the matrix's 160 frames,
+# re-run at the shipped bias stiffness (VERDICT.md:144-146): another length,
+# printed beside the port's row, not a bound.
+EVAL_JAX_VIO_ADAPT = "0.1548 m ATE / 3.35 % drift (JAX, 160 frames)"
+
+
+def eval_sequence(name, dev):
+    """(scene, sequence, bootstrap gyro, accel) of a matrix scene at the
+    matrix's full-width geometry, EVAL_FRAMES frames with its IMU noise
+    and biases from its per-scene rng."""
+    from rsvio_tpu_torch.data import synthetic
+    from rsvio_tpu_torch.tools import accuracy_matrix as am
+    from rsvio_tpu_torch.utils import evaluation
+
+    H, W = am.geometry(752)[:2]
+    scene_fn, traj_fn = synthetic.MATRIX_SCENES[name]
+    scene, traj = scene_fn(H=H, W=W, device=dev), traj_fn()
+    rng = am.scene_rng(EVAL_SEED, name)
+    kw = am.imu_kwargs(rng)
+    seq = synthetic.generate_sequence(scene, traj, EVAL_FRAMES, fps=EVAL_FPS,
+                                      imu_rate=200.0, imu_kwargs=kw)
+    gyro, accel = evaluation.static_init_imu(
+        traj, rng=rng, gyro_bias=kw["gyro_bias"], accel_bias=kw["accel_bias"],
+        gyro_noise=kw["gyro_noise"], accel_noise=kw["accel_noise"])
+    return scene, seq, gyro, accel
+
+
+def eval_phase(dev):
+    """The evaluation harness on the card (module docstring, phase 13):
+    utils.evaluation.run_synthetic_sequence on the accuracy matrix's
+    scenes and profiles at full width. Returns the K1 launches of its
+    runs."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.tools import accuracy_matrix as am
+    from rsvio_tpu_torch.utils import evaluation
+
+    _, _, levels, cell, margin = am.geometry(752)
+    profiles = dict(am.CONFIGS)
+    scenes = {}
+    total = 0
+    for scene_name, cname in EVAL_RUNS:
+        if scene_name not in scenes:
+            t0 = time.perf_counter()
+            scenes[scene_name] = eval_sequence(scene_name, dev)
+            torch.cuda.synchronize()
+            print(f"eval: {scene_name} rendered, {EVAL_FRAMES} frames in "
+                  f"{time.perf_counter() - t0:.2f}s", flush=True)
+        scene, seq, gyro, accel = scenes[scene_name]
+        ckw = profiles[cname]
+        vio = ckw["use_vio"]
+        tag = f"eval[{scene_name} x {cname}]"
+        probe = {}
+        t0 = time.perf_counter()
+        reset_counts()
+        res = evaluation.run_synthetic_sequence(
+            seq, scene, capacity=256, window=10, levels=levels,
+            cell_size=cell, detect_margin=margin,
+            init_gyro=gyro if vio else None,
+            init_accel=accel if vio else None, device=dev, probe=probe,
+            **ckw)
+        c = counts()
+        st = res.stats
+        n = EVAL_FRAMES
+        check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+              f"{tag}: launches {c} for {n} frames")
+        check(bool(np.isfinite(res.positions).all()),
+              f"{tag}: a non-finite pose")
+        # Frames where the gate ran, found a consensus and rejected tracks.
+        inl = st["n_ransac_inliers"]
+        cut = (inl > 0) & (inl < st["n_pnp_candidates"])
+        rec = {"frames": n, "seconds": time.perf_counter() - t0,
+               "ate_rmse_m": res.ate_rmse, "drift_pct": res.drift_pct,
+               "fps": res.fps, "tracked_mean": res.n_tracked_mean,
+               "ba_success_rate": res.ba_success_rate, "skip": res.skip,
+               "keyframes": int(st["is_keyframe"].sum()),
+               "pnp_ok_share": float(st["pnp_success"].mean()),
+               "health_min": float(st["health"].min()),
+               "n_dyn_killed": int(st["n_dyn_killed"].sum()),
+               "probe": {k: int(v) for k, v in probe.items()},
+               "launches": c}
+        if ckw.get("ransac"):
+            rec.update(gate_cut_frames=int(cut.sum()),
+                       gate_cut_share=float(cut.mean()))
+        if cname == "vo_fifo":
+            check(res.n_tracked_mean >= 80 and res.ba_success_rate == 1.0
+                  and res.drift_pct <= 2.0,
+                  f"{tag}: floors (tracked_mean >= 80, ba_success_rate 1, "
+                  f"drift <= 2 %): {rec}")
+        if cname == "vo_adapt":
+            check(cut.any(), f"{tag}: the RANSAC gate cut no track: {rec}")
+            check(rec["health_min"] < 1.0,
+                  f"{tag}: health never dropped below 1: {rec}")
+        if cname == "vio_adapt":
+            check(rec["n_dyn_killed"] > 0
+                  or rec["probe"].get("flow_tracked", 0) > 0,
+                  f"{tag}: the scene-flow gate tracked and killed "
+                  f"nothing: {rec}")
+            rec["jax_full_run"] = EVAL_JAX_VIO_ADAPT
+        total += c["klt_bidir"]
+        print(f"{tag}: " + json.dumps(rec), flush=True)
+    return total
+
+
 def dist_profile(dev, runs=5):
     """One NCCL rank made in this process: the W=10, L=256 window's
     sharded BA (dist_ba) and single-device BA in turns (single, dist,
@@ -2236,6 +2363,7 @@ def main():
     vio_launches = phase("vio", vio_phase, tex, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
     dist_launches = phase("dist", dist_phase)
+    eval_launches = phase("eval", eval_phase, dev)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
@@ -2250,7 +2378,8 @@ def main():
                       "launches_options": option_launches,
                       "launches_vio": vio_launches,
                       "launches_cli": cli_launches,
-                      "launches_dist": dist_launches}),
+                      "launches_dist": dist_launches,
+                      "launches_eval": eval_launches}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],

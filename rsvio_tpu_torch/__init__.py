@@ -22,7 +22,11 @@ of ``data.players`` / ``data.png``, ``utils.trajectory``,
 ``utils.checkpoint``, ``utils.observer``, ``profiling`` and the artifact
 viewer of ``viewers``), and the visual-inertial estimator (``models.imu``,
 ``models.vio_ba``, ``models.estimator_vio``, ``make_estimator_config(kind=
-"vio")``, ``--vio``) with the synthetic IMU scenes of ``data.synthetic``.
+"vio")``, ``--vio``) with the synthetic IMU scenes of ``data.synthetic``,
+the distributed layer (``parallel``), and the evaluation harness
+(``utils.evaluation``) with its tools (``tools``: the accuracy matrix,
+solver and component timers, ATE and GNSS converters, the weak-scaling
+table, the synthetic VO demo).
 Both TPU
 kernels of the JAX package have hand-written Hopper counterparts in
 ``ops.cuda.klt_kernel`` (source in ``csrc/``): the fused bidirectional KLT

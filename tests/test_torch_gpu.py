@@ -1334,3 +1334,117 @@ def test_distributed_step_syncs_equal_single_step(nccl_mesh):
     assert per_kind["dist"].get((True, True))
     assert per_kind["dist"] == per_kind["single"], (
         per_kind, {k: v for k, v in where.items() if k[1] == (True, True)})
+
+
+def _eval_sequence(n, vio=False):
+    """tests/test_torch_evaluation.py's small runs: depth_6dof (VO) or
+    tests/test_vio_init.py's plane at 2.5 m on a gentler 6-DoF trajectory
+    (VIO), rendered on the CPU (the same frames for both devices), n frames
+    at 10 Hz with the accuracy matrix's IMU biases and noise."""
+    import dataclasses
+
+    from rsvio_tpu_torch.data import synthetic as syn
+    if vio:
+        scene = dataclasses.replace(
+            syn.scene_easy_plane(H=120, W=188, device="cpu"),
+            planes=[syn._frontal_plane(2.5, 7.0, 5.0, 0, device="cpu")])
+        traj = syn.traj_6dof(lin_amp=(0.5, 0.2, 0.15),
+                             ang_amp_deg=(4.0, 3.0, 2.0))
+    else:
+        scene = syn.scene_depth_structured(H=120, W=188, device="cpu")
+        traj = syn.traj_6dof()
+    rng = np.random.default_rng(11)
+    seq = syn.generate_sequence(
+        scene, traj, n, fps=10.0, imu_rate=200.0,
+        imu_kwargs=dict(noise_rng=rng, gyro_bias=[0.003, -0.002, 0.004],
+                        accel_bias=[0.02, -0.015, 0.01], gyro_noise=1.7e-4,
+                        accel_noise=2.0e-3))
+    return scene, traj, seq
+
+
+EVAL_SMALL = dict(capacity=96, window=5, levels=3, cell_size=24,
+                  detect_margin=10, translation_threshold=0.03,
+                  rotation_threshold=0.03)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["vo_fifo", "vo_adapt", "vio_fifo"])
+def test_run_synthetic_sequence_cuda_matches_cpu(dev, profile):
+    """utils.evaluation.run_synthetic_sequence on the card (kernel route)
+    against the CPU (plain versions) on the same frames: positions within
+    the whole-step tolerance (1e-3 m; VIO 3e-3 m, the float32 joint solve's,
+    as test_vio_step_on_cuda_matches_cpu), keyframes and BA outcomes equal,
+    and exactly 2 K1 launches a frame on the card. The VIO run is on the
+    plane scene: on depth_6dof at this width its float32 trajectory moves
+    by centimetres with the order of a sum (tests/test_torch_evaluation.py).
+    """
+    from rsvio_tpu_torch.utils import evaluation
+    vio = profile == "vio_fifo"
+    scene, traj, seq = _eval_sequence(14, vio)
+    kw = dict(EVAL_SMALL, **{
+        "vo_fifo": dict(), "vo_adapt": dict(motion_prior=20.0, ransac=16,
+                                            adaptive=True),
+        "vio_fifo": dict(use_vio=True)}[profile])
+    if kw.get("use_vio"):
+        kw["init_gyro"], kw["init_accel"] = evaluation.static_init_imu(traj)
+    res = {}
+    for d in ("cpu", "cuda"):
+        kk.klt_bidir.launches = 0
+        res[d] = evaluation.run_synthetic_sequence(seq, scene, device=d,
+                                                   **kw)
+        assert kk.klt_bidir.launches == (2 * 14 if d == "cuda" else 0)
+    assert float(np.abs(res["cuda"].positions
+                        - res["cpu"].positions).max()) <= (3e-3 if vio
+                                                            else 1e-3)
+    for f in ("is_keyframe", "ba_success"):
+        np.testing.assert_array_equal(res["cuda"].stats[f],
+                                      res["cpu"].stats[f])
+    assert np.isfinite(res["cuda"].positions).all()
+    assert res["cuda"].fps > 0
+
+
+@pytest.mark.gpu
+def test_run_synthetic_sequence_reads_once_a_frame(dev, monkeypatch):
+    """The harness's loop makes exactly one host sync a frame beyond the
+    step's own: its batched read of the frame's outputs. The step's syncs
+    are taken out by a wrapper around each step call; frames are on the
+    card already, and the harness's own syncs of runs of 7 and 5 frames
+    differ by exactly two, both at the read."""
+    from collections import Counter
+
+    from rsvio_tpu_torch.data import synthetic as syn
+    from rsvio_tpu_torch.utils import evaluation
+
+    scene = syn.scene_depth_structured(H=120, W=188, device=dev)
+    seq = syn.generate_sequence(scene, syn.traj_6dof(), 7, fps=10.0)
+    make_step = est.make_estimator_step
+    step_syncs = []
+
+    def counted_step(ecfg, **kw):
+        step = make_step(ecfg, **kw)
+
+        def f(*args):
+            out, syncs = _count_syncs(lambda: step(*args))
+            step_syncs.append(len(syncs))
+            return out
+        return f
+
+    monkeypatch.setattr(est, "make_estimator_step", counted_step)
+
+    def run(n):
+        part = dict(seq, frames=seq["frames"][:n], ts=seq["ts"][:n],
+                    gt_T_W_B=seq["gt_T_W_B"][:n])
+        return evaluation.run_synthetic_sequence(part, scene, device=dev,
+                                                 **EVAL_SMALL)
+
+    run(7)                       # warm-up: kernel build, allocations
+    own = {}
+    for n in (5, 7):
+        step_syncs.clear()
+        _, own[n] = _count_syncs(lambda: run(n))
+        assert len(step_syncs) == n and min(step_syncs) > 0
+    added = Counter(own[7])
+    added.subtract(Counter(own[5]))
+    added = {k: v for k, v in added.items() if v}
+    assert list(added.values()) == [2] and \
+        next(iter(added)).startswith("evaluation.py:"), (added, own[5])

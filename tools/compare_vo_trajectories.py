@@ -17,10 +17,20 @@ chip_smoke.py's vio runs (the same port-rendered frames, IMU stream,
 bootstrap and per-frame IMU buffers; the JAX config is the port's, field
 by field), and prints both runs' floor numbers (chip_smoke.vio_metrics).
 
+With ``--matrix`` it runs the accuracy matrix's scenes and profiles
+through both evaluation harnesses (rsvio_tpu.utils.evaluation and
+rsvio_tpu_torch.utils.evaluation) on the same frames and IMU (the JAX
+package's generate_sequence, the matrix's seeds and geometry at --width),
+both on the gather KLT route by default (``--route kernel``: both on the
+kernel route, JAX's Pallas kernel in interpret mode), with JAX's RANSAC
+draws given to the port, and prints each row's ATE and drift beside each
+other and the largest position gap.
+
 Usage:
   python tools/compare_vo_trajectories.py config/euroc_vo_dynamic.yaml \\
       --solver marginalization=true pnp_cv_predict=true --frames 24
   python tools/compare_vo_trajectories.py --vio depth_6dof+vio
+  python tools/compare_vo_trajectories.py --matrix --width 320 --frames 40
 """
 
 import argparse
@@ -58,6 +68,13 @@ def main(argv=None):
                     help="run JAX on its Pallas KLT kernel (interpret mode "
                          "on the CPU), the route the port's kernel follows")
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--matrix", action="store_true",
+                    help="the accuracy matrix through both harnesses")
+    ap.add_argument("--width", type=int, default=320)
+    ap.add_argument("--scenes", nargs="*", default=None)
+    ap.add_argument("--configs", nargs="*", default=None)
+    ap.add_argument("--route", choices=("gather", "kernel"),
+                    default="gather")
     args = ap.parse_args(argv)
     solver = dict(kv.split("=", 1) for kv in args.solver)
     solver = {k: _value(v) for k, v in solver.items()}
@@ -71,6 +88,10 @@ def main(argv=None):
 
     if args.vio:
         return compare_vio(args.vio, args.port_gather, args.jax_pallas)
+    if args.matrix:
+        compare_matrix(args.width, args.frames, args.scenes, args.configs,
+                       args.route)
+        return 0
     if args.config is None:
         ap.error("a config file, or --vio RUN")
 
@@ -113,6 +134,68 @@ def main(argv=None):
               flush=True)
     print(f"{args.frames} frames in {time.perf_counter() - t0:.1f} s")
     return 0
+
+
+def compare_matrix(width, frames, scenes=None, configs=None,
+                   route="gather"):
+    """The accuracy matrix's rows through both harnesses on the same JAX
+    frames; prints one line a row and returns the rows."""
+    import jax
+    import numpy as np
+    import torch
+
+    from rsvio_tpu.data import synthetic as jsyn
+    from rsvio_tpu.utils import evaluation as jeval
+    from rsvio_tpu_torch.data import synthetic as tsyn
+    from rsvio_tpu_torch.tools import accuracy_matrix as am
+    from rsvio_tpu_torch.utils import evaluation as teval
+
+    H, W, levels, cell, margin = am.geometry(width)
+    backend = "xla" if route == "gather" else "pallas"
+    names = [c for c, _ in am.CONFIGS if not configs or c in configs]
+    rows = []
+    print(f"{W}x{H} frames={frames} levels={levels} cell={cell} "
+          f"margin={margin} route={route}: scene config | ATE jax port (m) "
+          f"| drift jax port (%) | max|dpos| (m)")
+    for sname in scenes or list(jsyn.MATRIX_SCENES):
+        scene_fn, traj_fn = jsyn.MATRIX_SCENES[sname]
+        scene, traj = scene_fn(H=H, W=W), traj_fn()
+        tscene = tsyn.MATRIX_SCENES[sname][0](H=H, W=W, device="cpu")
+        rng = am.scene_rng(7, sname)
+        kw = am.imu_kwargs(rng)
+        seq = jsyn.generate_sequence(scene, traj, frames, fps=20.0,
+                                     imu_rate=200.0, imu_kwargs=kw)
+        boot = jeval.static_init_imu(
+            traj, rng=rng, gyro_bias=kw["gyro_bias"],
+            accel_bias=kw["accel_bias"], gyro_noise=kw["gyro_noise"],
+            accel_noise=kw["accel_noise"])
+        for cname, ckw in am.CONFIGS:
+            if cname not in names:
+                continue
+            common = dict(capacity=256, window=10, levels=levels,
+                          cell_size=cell, detect_margin=margin,
+                          backend=backend, **ckw)
+            if ckw["use_vio"]:
+                common.update(init_gyro=boot[0], init_accel=boot[1])
+            jr = jeval.run_synthetic_sequence(seq, scene, **common)
+            draws = None
+            if ckw.get("ransac"):
+                key = jax.random.PRNGKey(0x5A11AC)
+                jd = [np.array(jax.random.gumbel(
+                    jax.random.fold_in(key, k), (ckw["ransac"], 512),
+                    dtype=jax.numpy.float32)) for k in range(frames)]
+                draws = (lambda fid, shape, dtype, device, jd=jd:
+                         torch.from_numpy(jd[fid]).to(dtype=dtype,
+                                                      device=device))
+            tr = teval.run_synthetic_sequence(seq, tscene, device="cpu",
+                                              draws=draws, **common)
+            gap = float(np.abs(tr.positions - jr.positions).max())
+            rows.append((sname, cname, jr.ate_rmse, tr.ate_rmse,
+                         jr.drift_pct, tr.drift_pct, gap))
+            print(f"{sname} {cname} | {jr.ate_rmse:.4f} {tr.ate_rmse:.4f} | "
+                  f"{jr.drift_pct:.2f} {tr.drift_pct:.2f} | {gap:.2e}",
+                  flush=True)
+    return rows
 
 
 def _to_jax(x, jax_types):
