@@ -149,6 +149,17 @@ them. Phases, each of which raises on failure:
                ATE printed. "tartanair": 40 left
                frames at 640x480 through run_tartanair.main with
                config/tartanair.yaml: 39 K1 launches and the mono floors.
+               "--viewer": run_euroc on the euroc tree's first 30 frames
+               and run_tartanair on its tree with the rerun viewer on a
+               recording stand-in for the rerun SDK (put into sys.modules
+               here; the SDK is not on the card's machine), each beside the
+               same run without a viewer: the trajectory file byte for byte
+               (tartanair: the tracked / alive counts), the same K1
+               launches, the reference entity schema on every frame
+               (stereo/left, stereo/right with their features,
+               pose_current, pose_<i>, map/points, trajectory/path; the
+               mono tracker's debug surface: labels, pyramid levels, the
+               corner-score map), and both runs' ms a frame.
                Each cli[...] line gives the CLI's mean ms a frame (upload,
                step and its one read), the direct step's blocked median at
                the same config in this call, and the decode ms per frame
@@ -230,6 +241,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MONO_FRAMES, MONO_WARMUP = 40, 10
 CLI_FRAMES = {"euroc": 66, "tum": 30, "4seasons": 30}
 CLI_TOL = 1e-5          # m and rad: the CLI's trajectory vs the direct step
+VIEWER_FRAMES = 30      # run_euroc --viewer and its plain twin (cli phase)
 EUROC_T0 = 1_403_636_579_763_555_584   # ns, a EuRoC-like first stamp
 VIO_TIMED = 30
 VIO_FPS = 20.0
@@ -243,6 +255,7 @@ VIO_VEL_TOL = 0.1       # m/s, the last frame's velocity error
 # Pallas KLT route, tools/compare_vo_trajectories.py --vio RUN --jax-pallas).
 VIO_DRIFT_UNHELD = ("depth_6dof+vio",)
 KERNEL_RUNS = 25
+FUSION_CHAIN, FUSION_EPOCHS = 50, 4   # tools/bench_tracker_fusion's
 SPIN_CYCLES = 2_000_000   # GPU spin ahead of each timed run (~1 ms)
 POS_TOL = 1e-3
 THETA_TOL = 1e-4
@@ -604,7 +617,43 @@ def track_points_phase(frames, rolled, dev):
               f"{agree:.4f} max|dpos|={err:.3g}px max|dth|={err_th:.3g}",
               flush=True)
         level_launches.append(c["klt_level"])
-    return sum(level_launches)
+    return sum(level_launches), fusion_ab(dev)
+
+
+def fusion_ab(dev):
+    """tools.bench_tracker_fusion at its full size (752x480, 256 points, 6
+    levels): the fused pass (1 K1 launch) against the composition (12 K2
+    launches and the gate), chains of FUSION_CHAIN passes in FUSION_EPOCHS
+    interleaved epochs; both routes' ms a pass, their ratio, launches and
+    host syncs a pass, and survivors. Returns (klt_bidir's fields of the
+    kernels line, the launch counts of the A/B)."""
+    from rsvio_tpu_torch.tools import bench_tracker_fusion as bf
+
+    reset_counts()
+    r = bf.run(dev, FUSION_CHAIN, FUSION_EPOCHS)
+    c = counts()
+    f, k = r["fused"], r["composed"]
+    check(f["launches"] == {"klt_bidir": 1, "klt_level": 0}
+          and k["launches"] == {"klt_bidir": 0, "klt_level": 2 * bf.LEVELS},
+          f"fusion_ab: launches a pass {f['launches']} / {k['launches']}")
+    check(abs(f["survivors"] - k["survivors"]) <= 0.01 * bf.N
+          and f["survivors"] >= 0.9 * bf.N,
+          f"fusion_ab: survivors fused {f['survivors']} composed "
+          f"{k['survivors']} of {bf.N}")
+    line = {"fused_ms": f["best_ms"], "composed_ms": k["best_ms"],
+            "composed_over_fused": k["best_ms"] / f["best_ms"],
+            "fused_ms_all": f["ms"], "composed_ms_all": k["ms"],
+            "fused_syncs_per_pass": len(f["syncs"]),
+            "composed_syncs_per_pass": len(k["syncs"]),
+            "sync_sites": sorted(set(f["syncs"] + k["syncs"])),
+            "survivors_fused": f["survivors"],
+            "survivors_composed": k["survivors"], "points": bf.N,
+            "chain": FUSION_CHAIN, "epochs": FUSION_EPOCHS, "launches": c}
+    print("fusion_ab: " + json.dumps(line), flush=True)
+    return {"fusion_fused_ms": f["best_ms"],
+            "fusion_composed_ms": k["best_ms"],
+            "fusion_ratio": line["composed_over_fused"],
+            "launches_fusion": c["klt_bidir"]}, c
 
 
 def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
@@ -1515,8 +1564,114 @@ def cli_euroc(tex, dev, tmp):
         "drift_rel": drift, "ba_fires": s["ba_fires_in_quality_pass"],
         "overlays": len(overlays), "resume_max_rel_diff": worst}
     print("cli[euroc]: " + json.dumps(line), flush=True)
-    return c["klt_bidir"] + cli_euroc_vio(cfg_path, root, u8[:n], truth[:n],
-                                          tmp)
+    return (c["klt_bidir"] + cli_euroc_viewer(cfg_path, root, tmp)
+            + cli_euroc_vio(cfg_path, root, u8[:n], truth[:n], tmp))
+
+
+def rerun_stub():
+    """(module, calls): a recording stand-in for the rerun SDK, which the
+    card's machine does not have. It takes every construction and call the
+    port's RerunViewer makes; calls records ("init", app_id), ("frame", k)
+    for each set_time_sequence and ("log", path, archetype) for each
+    log."""
+    import types
+
+    calls = []
+
+    class Archetype:
+        def __init__(self, *a, **k):
+            self.args, self.kwargs, self.jpeg = a, k, None
+
+        def compress(self, jpeg_quality=75):
+            self.jpeg = jpeg_quality
+            return self
+
+    rr = types.ModuleType("rerun")
+    for name in ("Arrows3D", "Image", "Points2D", "Points3D", "Transform3D",
+                 "Quaternion", "Pinhole", "LineStrips3D", "DepthImage"):
+        setattr(rr, name, type(name, (Archetype,), {}))
+    rr.ViewCoordinates = types.SimpleNamespace(RDF="RDF")
+    rr.init = lambda app_id, spawn=True: calls.append(("init", app_id))
+    rr.log = lambda path, obj, static=False: calls.append(("log", path, obj))
+    rr.set_time_sequence = lambda name, k: calls.append(("frame", k))
+    rr.set_time_seconds = lambda name, t: None
+    return rr, calls
+
+
+def viewer_run(main, argv):
+    """main(argv + ["--viewer"]) with rerun_stub() as the rerun SDK: (rc,
+    the entity paths logged after each frame's set_frame, the calls)."""
+    rr, calls = rerun_stub()
+    prev = sys.modules.get("rerun")
+    sys.modules["rerun"] = rr
+    try:
+        rc = main(argv + ["--viewer"])
+    finally:
+        if prev is None:
+            del sys.modules["rerun"]
+        else:
+            sys.modules["rerun"] = prev
+    check(calls and calls[0] == ("init", "rsvio_tpu"),
+          f"viewer: the rerun viewer did not start ({calls[:1]})")
+    frames = []
+    for c in calls:
+        if c[0] == "frame":
+            frames.append([])
+        elif c[0] == "log" and frames:
+            frames[-1].append(c[1])
+    return rc, frames, calls
+
+
+def cli_euroc_viewer(cfg_path, root, tmp):
+    """run_euroc --viewer (the rerun viewer on the recording stub) over the
+    first VIEWER_FRAMES frames of the euroc tree against the same run
+    without a viewer: the trajectory file byte for byte, the reference
+    entity schema every frame (estimator.rs:272-364), 2 K1 launches a
+    frame, and both runs' ms a frame."""
+    import numpy as np
+    from rsvio_tpu_torch.cli import run_euroc
+
+    n = VIEWER_FRAMES
+    out = {k: os.path.join(tmp, f"viewer_{k}.txt")
+           for k in ("plain", "viewer")}
+    argv = [cfg_path, root, "--max-frames", str(n), "--quiet"]
+    check(run_euroc.main(argv + ["--trajectory-out", out["plain"]]) == 0,
+          "cli[euroc --viewer]: the plain run failed")
+    plain = run_euroc.main.last_result.frame_processing_times_ms
+    reset_counts()
+    rc, frames, calls = viewer_run(run_euroc.main, argv + [
+        "--trajectory-out", out["viewer"]])
+    c = counts()
+    shown = run_euroc.main.last_result.frame_processing_times_ms
+    with open(out["plain"], "rb") as a, open(out["viewer"], "rb") as b:
+        same = a.read() == b.read()
+    check(rc == 0 and same, f"cli[euroc --viewer]: rc {rc}, trajectory "
+          f"equal to the plain run's: {same}")
+    check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+          f"cli[euroc --viewer]: launches {c} for {n} frames")
+    check(len(frames) == n, f"cli[euroc --viewer]: {len(frames)} frames "
+          f"logged, want {n}")
+    need = {"stereo/left", "stereo/left/features", "stereo/right",
+            "stereo/right/features", "pose_current", "pose_<i>"}
+    for k, paths in enumerate(frames):
+        kinds = {re.sub(r"^pose_\d+$", "pose_<i>", p) for p in paths}
+        check(need <= kinds <= need | {"map/points", "trajectory/path"}
+              and ("trajectory/path" in kinds) == (k > 0),
+              f"cli[euroc --viewer]: frame {k} logged {sorted(kinds)}")
+    check(any("map/points" in p for p in frames),
+          "cli[euroc --viewer]: no map/points logged")
+    jpeg = {call[2].jpeg for call in calls if call[0] == "log"
+            and type(call[2]).__name__ == "Image"}
+    check(jpeg == {75}, f"cli[euroc --viewer]: JPEG qualities {jpeg}")
+    line = {"frames": n, "launches": c, "traj_bitwise_plain": same,
+            "entities_last_frame": sorted(set(frames[-1])),
+            "logs_per_frame": len(frames[-1]),
+            "viewer_ms_median": float(np.median(shown)),
+            "plain_ms_median": float(np.median(plain)),
+            "viewer_ms_mean": float(np.mean(shown)),
+            "plain_ms_mean": float(np.mean(plain))}
+    print("cli[euroc --viewer]: " + json.dumps(line), flush=True)
+    return c["klt_bidir"]
 
 
 def cli_euroc_vio(cfg_path, root, u8, truth, tmp):
@@ -1657,7 +1812,38 @@ def cli_tartanair(tex, dev, tmp, medians):
           f"cli[tartanair]: launches {c} for {MONO_FRAMES} frames")
     check(line["tracked_mean"] >= 80.0, "cli[tartanair]: tracked_mean < 80")
     check(kill <= 0.3, f"cli[tartanair]: kill rate {kill} > 0.3")
-    return c["klt_bidir"]
+
+    # --viewer on the recording stub: the same counts, the debug surface.
+    reset_counts()
+    rc, frames, calls = viewer_run(run_tartanair.main,
+                                   [root, "--config", cfg_path, "--quiet"])
+    cv = counts()
+    shown = run_tartanair.main.last_result
+    check(rc == 0 and (shown.tracked, shown.alive) == (res.tracked,
+                                                       res.alive),
+          f"cli[tartanair --viewer]: rc {rc}, counts differ from the plain "
+          f"run")
+    check(cv == c, f"cli[tartanair --viewer]: launches {cv}, want {c}")
+    want = (["tartanair/left", "tartanair/left/features", "tartanair/labels"]
+            + [f"tartanair/pyramid/level_{i}" for i in range(m["levels"])]
+            + ["tartanair/shi_tomasi"])
+    check(len(frames) == MONO_FRAMES and all(f == want for f in frames),
+          f"cli[tartanair --viewer]: entities {frames[:1]}, want {want}")
+    last = {call[1]: call[2] for call in calls if call[0] == "log"}
+    lab, pts = last["tartanair/labels"], last["tartanair/left/features"]
+    check(np.allclose(lab.args[0], np.asarray(pts.args[0]) + 0.5)
+          and last["tartanair/shi_tomasi"].args[0].shape == m["shape"]
+          and last["tartanair/pyramid/level_4"].kwargs["draw_order"] == 4.0,
+          "cli[tartanair --viewer]: debug surface payloads")
+    print("cli[tartanair --viewer]: " + json.dumps({
+        "frames": len(frames), "launches": cv,
+        "counts_equal_plain": True, "logs_per_frame": len(want),
+        "viewer_ms_median": float(np.median(
+            shown.frame_processing_times_ms)),
+        "plain_ms_median": float(np.median(res.frame_processing_times_ms)),
+        "viewer_ms_mean": shown.avg_processing_time_ms,
+        "plain_ms_mean": res.avg_processing_time_ms}), flush=True)
+    return c["klt_bidir"] + cv["klt_bidir"]
 
 
 def cli_ab(tex, dev):
@@ -2352,8 +2538,8 @@ def main():
 
     kres = phase("kernel", kernel_phase, frames, rolled, dev)
     phase("agree", agree_phase, dev)
-    level_launches = phase("track_points", track_points_phase, frames,
-                           rolled, dev)
+    level_launches, (fusion, fusion_launches) = phase(
+        "track_points", track_points_phase, frames, rolled, dev)
     launches = phase("main", main_phase, frames, dev)
     rot_launches = phase("rotation", rotation_phase, frames, dev)
     medians = {}
@@ -2379,12 +2565,13 @@ def main():
                       "launches_vio": vio_launches,
                       "launches_cli": cli_launches,
                       "launches_dist": dist_launches,
-                      "launches_eval": eval_launches}),
+                      "launches_eval": eval_launches, **fusion}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],
                       kres["level3_rot"]],
                      {"dead_ms": kres["level0"]["dead_ms"],
+                      "launches_fusion": fusion_launches["klt_level"],
                       **{f"{k}_{lvl}": kres[lvl][k]
                          for lvl in ("level3", "level0_rot", "level3_rot")
                          for k in ("ms", "device_ms", "dead_ms", "plain_ms",

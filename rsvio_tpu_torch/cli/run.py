@@ -226,7 +226,7 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
     from ..utils.checkpoint import load_state, save_state
     from ..utils.config import load_config, make_estimator_config
     from ..utils.trajectory import save_tum
-    from ..viewers import create_viewer
+    from ..viewers import NullViewer, create_viewer
     from .playback import PlaybackController
 
     dev = resolve_device(pcfg.device)
@@ -281,7 +281,8 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
         log.info("resumed state from %s", pcfg.checkpoint_in)
 
     viewer = create_viewer(pcfg.enable_viewer, pcfg.viewer_dir)
-    viewer_on = bool(pcfg.viewer_dir)
+    # A NullViewer reads nothing: the frame's one batched read stays small.
+    viewer_on = not isinstance(viewer, NullViewer)
     intr = rig.params[0][:4].cpu().numpy() if viewer_on else None
 
     n_frames = len(player)
@@ -543,8 +544,7 @@ def make_cli(player_cls, name: str):
         ap.add_argument("--realtime", action="store_true")
         ap.add_argument("--step-mode", action="store_true")
         ap.add_argument("--viewer", action="store_true",
-                        help="interactive viewer (not ported yet: ROADMAP "
-                             "A18; use --viewer-dir)")
+                        help="the rerun viewer (needs the rerun SDK)")
         ap.add_argument("--viewer-dir", default=None,
                         help="write visualization artifacts (PNG overlays, "
                              "PLY map, SVG trajectory) to this directory")

@@ -118,7 +118,7 @@ def main(argv=None):
     from ..data.players import TartanAirPlayer, prefetch_frames
     from ..models import mono_tracker as mt
     from ..ops import detect
-    from ..viewers import create_viewer
+    from ..viewers import NullViewer, create_viewer
 
     dev = resolve_device(args.device)
     player = TartanAirPlayer(args.dataset_path)
@@ -127,7 +127,7 @@ def main(argv=None):
     log.info("TartanAir: %d frames (processing %d) on %s", len(player), n,
              dev)
     viewer = create_viewer(args.viewer, args.viewer_dir)
-    viewer_on = bool(args.viewer_dir)
+    viewer_on = not isinstance(viewer, NullViewer)
     cfg, make_pyramid = tracker_settings(args.config, args.levels,
                                          args.capacity)
     table = mt.init_mono_table(args.capacity, device=dev)

@@ -136,3 +136,15 @@ def unproject(kind: str, params, uv):
     if _is_eucm(kind):
         return eucm_unproject(params, uv)
     return radtan_unproject(params, uv)
+
+
+def project_normalized(p_cam):
+    """Pure pinhole normalization (x/z, y/z) with cheirality validity, the
+    projection inside the optimizer (ref src/optimization/factors.rs:136).
+    p_cam (..., 3) -> (xy (..., 2), valid (...)): valid where z > 1e-6; z
+    taken as 1 where not."""
+    z = p_cam[..., 2]
+    valid = z > 1e-6
+    z_safe = torch.where(valid, z, torch.ones_like(z))
+    return torch.stack([p_cam[..., 0] / z_safe, p_cam[..., 1] / z_safe],
+                       dim=-1), valid

@@ -99,6 +99,21 @@ def linearize_projection(T_C_B, T_B_W, p_W, obs, mask,
                          valid=valid, cost=cost)
 
 
+def projection_cost(T_C_B, T_B_W, p_W, obs, mask, huber_delta: float = 2.0):
+    """Robust cost of observations (for LM accept / reject), broadcast over
+    leading dims as linearize_projection, whose cost field it equals:
+    behind the camera the residual is CHEIRALITY_RESIDUAL, a masked-out
+    observation costs 0."""
+    p_B = _mv(T_B_W[..., :3, :3], p_W) + T_B_W[..., :3, 3]
+    p_C = _mv(T_C_B[..., :3, :3], p_B) + T_C_B[..., :3, 3]
+    in_front = p_C[..., 2] > 1e-6
+    z_safe = torch.where(in_front, p_C[..., 2], torch.ones_like(p_C[..., 2]))
+    proj = torch.stack([p_C[..., 0] / z_safe, p_C[..., 1] / z_safe], dim=-1)
+    r = torch.where(in_front[..., None], proj - obs,
+                    torch.full_like(proj, CHEIRALITY_RESIDUAL))
+    return huber_cost((r * r).sum(-1), huber_delta) * mask.to(r.dtype)
+
+
 def triangulate_stereo(T_W_Cl, T_W_Cr, xy_l, xy_r):
     """Midpoint triangulation from a stereo pair of normalized observations.
 

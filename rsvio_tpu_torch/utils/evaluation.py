@@ -7,10 +7,12 @@ displacement drift, on the adversarial scene classes (6-DoF motion, depth
 structure, photometric drift, occlusion).
 
 What differs from the JAX module:
-  * ``run_synthetic_sequence`` takes a ``device`` (default "cuda") and
-    passes ``draws`` and ``probe`` to the step (see
-    models.estimator.make_estimator_step). Frames may be device tensors
-    (data.synthetic renders there) or numpy arrays, which go up once each.
+  * ``run_synthetic_sequence`` takes a ``device`` (default "cuda") and a
+    ``dtype`` (default float32; float64 runs the rig, state, frames and IMU
+    in double, as a ``precision: f64`` config does), and passes ``draws``
+    and ``probe`` to the step (see models.estimator.make_estimator_step).
+    Frames may be device tensors (data.synthetic renders there) or numpy
+    arrays, which go up once each.
   * A frame's outputs come back in one device-to-host copy (JAX reads four
     scalars a frame, and each would be a sync here). ``RunResult`` keeps
     those reads per frame in ``stats``, beside JAX's fields.
@@ -133,7 +135,8 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
                            use_obs_weights: bool = True,
                            coarse_level_policy: str = None,
                            backend: str = "auto", device="cuda",
-                           draws=None, probe=None) -> RunResult:
+                           dtype=torch.float32, draws=None,
+                           probe=None) -> RunResult:
     """Drive the (V)IO estimator over a generate_sequence() output on
     `device`.
 
@@ -204,6 +207,7 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
     T_B_Cr[0, 3] = scene.baseline
     rig = est.make_rig(params, params,
                        torch.eye(4, dtype=torch.float32, device=dev), T_B_Cr)
+    rig = type(rig)(*(x.to(dtype) for x in rig))
     step_kw = dict(probe=probe, **({} if draws is None else
                                    dict(draws=draws)))
 
@@ -233,16 +237,16 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
         step = ev.make_vio_estimator_step(cfg, **step_kw)
         if init_gyro is not None:
             state = ev.initialize_vio_state(cfg, init_gyro, init_accel,
-                                            device=dev)
+                                            dtype=dtype, device=dev)
         else:
-            state = ev.init_vio_state(cfg, device=dev)
+            state = ev.init_vio_state(cfg, dtype=dtype, device=dev)
         imu = frame_imu_buffers(seq, imu_buf)
     else:
         step = est.make_estimator_step(base, **step_kw)
-        state = est.init_state(base, device=dev)
+        state = est.init_state(base, dtype=dtype, device=dev)
 
     def upload(img):
-        img = torch.as_tensor(img, dtype=torch.float32)
+        img = torch.as_tensor(img, dtype=dtype)
         if img.device.type == "cpu" and dev.type == "cuda":
             # A pageable copy would block the host.
             return img.pin_memory().to(dev, non_blocking=True)

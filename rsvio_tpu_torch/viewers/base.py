@@ -2,10 +2,9 @@
 
 Port of rsvio_tpu/viewers/base.py (ref src/viewers/viewer.rs:6-45): the
 same visualization surface and the same deterministic id->RGB hashing with
-a minimum brightness of 50 (ref src/viewers/mod.rs:16-49). The rerun viewer
-is not ported yet (ROADMAP A18): ``create_viewer`` gives the artifact
-viewer for a directory and the NullViewer otherwise, as the JAX package
-does where the rerun SDK is missing.
+a minimum brightness of 50 (ref src/viewers/mod.rs:16-49). ``create_viewer``
+gives the artifact viewer for a directory, the rerun viewer where the SDK
+is installed and starts, and the NullViewer otherwise.
 """
 
 from __future__ import annotations
@@ -86,14 +85,25 @@ class NullViewer(Viewer):
 
 def create_viewer(enabled: bool = True, artifact_dir: str = None) -> Viewer:
     """Factory (ref rerun.rs:448): the artifact-writing viewer when a
-    directory is given, NullViewer otherwise. Asked for the interactive
-    viewer (`enabled` without a directory), it logs one warning: that
-    viewer is not ported yet."""
+    directory is given, the rerun-backed viewer when the SDK exists and
+    starts, NullViewer otherwise. Without the SDK it logs one warning."""
     if artifact_dir:
         from .artifacts import ArtifactViewer
         return ArtifactViewer(artifact_dir)
-    if enabled:
+    if not enabled:
+        return NullViewer()
+    try:
+        import rerun  # noqa: F401
+    except ImportError:
         logging.getLogger("rsvio").warning(
-            "--viewer: the rerun viewer is not ported yet (ROADMAP A18); "
-            "no viewer runs. --viewer-dir writes PNG / PLY / SVG artifacts")
+            "--viewer: the rerun SDK (import rerun) is not installed; no "
+            "viewer runs. --viewer-dir writes PNG / PLY / SVG artifacts")
+        return NullViewer()
+    try:
+        from .rerun_viewer import RerunViewer
+        v = RerunViewer()
+        if v.initialize():
+            return v
+    except Exception:
+        pass
     return NullViewer()

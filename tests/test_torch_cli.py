@@ -503,7 +503,7 @@ def test_gather_route_and_viewer_warnings(tree, tmp_path):
                                       "--max-frames", "2", "--viewer"])
     assert rc == 0
     assert any("gather path" in ln for ln in lines)
-    assert sum("ROADMAP A18" in ln for ln in lines) == 1
+    assert sum("rerun SDK" in ln for ln in lines) == 1
     rc, lines = run(trun_euroc.main, [cfg, root, "--device", "cpu",
                                       "--max-frames", "2"])
     assert not any("gather path" in ln for ln in lines)

@@ -24,13 +24,31 @@ package's generate_sequence, the matrix's seeds and geometry at --width),
 both on the gather KLT route by default (``--route kernel``: both on the
 kernel route, JAX's Pallas kernel in interpret mode), with JAX's RANSAC
 draws given to the port, and prints each row's ATE and drift beside each
-other and the largest position gap.
+other and the largest position gap. ``--geometry small`` runs the
+harness tests' small geometry instead (tests/test_torch_evaluation.py:
+120x188, capacity 96, window 5, 3 levels, 10 Hz, its IMU seed).
+
+``--precision f64`` runs both sides in double (the port's harness with
+``dtype=torch.float64``; the JAX side under x64 with its harness's rig,
+state, frames and IMU cast to float64 — its own harness builds them in
+float32 — as a ``precision: f64`` config does). ``--save PATH`` writes each
+row's positions to a JSON file; ``--against PATH`` reads such a file of the
+other precision and prints, per row, each package's gap to its own run
+there. ``--trace`` records both steps' per-frame outputs and prints, per
+row, the first frame where a count, a flag or the pose (by > 1e-9 m)
+differs; where the RANSAC gate ran on that frame, it also runs both
+packages' gates on the port's inputs of that frame and prints each one's
+inlier count and age-weighted vote (by math.fsum, free of rounding: the
+quantity the gate's argmax compares).
 
 Usage:
   python tools/compare_vo_trajectories.py config/euroc_vo_dynamic.yaml \\
       --solver marginalization=true pnp_cv_predict=true --frames 24
   python tools/compare_vo_trajectories.py --vio depth_6dof+vio
   python tools/compare_vo_trajectories.py --matrix --width 320 --frames 40
+  python tools/compare_vo_trajectories.py --matrix --geometry small \
+      --frames 18 --scenes depth_6dof --configs vio_fifo --precision f64 \
+      --save f64.json
 """
 
 import argparse
@@ -75,6 +93,16 @@ def main(argv=None):
     ap.add_argument("--configs", nargs="*", default=None)
     ap.add_argument("--route", choices=("gather", "kernel"),
                     default="gather")
+    ap.add_argument("--geometry", choices=("matrix", "small"),
+                    default="matrix")
+    ap.add_argument("--precision", choices=("f32", "f64"), default="f32",
+                    help="--matrix: run both packages in this precision")
+    ap.add_argument("--save", default=None,
+                    help="--matrix: write each row's positions here (JSON)")
+    ap.add_argument("--against", default=None,
+                    help="--matrix: a --save file of the other precision")
+    ap.add_argument("--trace", action="store_true",
+                    help="--matrix: the first frame where the steps part")
     args = ap.parse_args(argv)
     solver = dict(kv.split("=", 1) for kv in args.solver)
     solver = {k: _value(v) for k, v in solver.items()}
@@ -89,8 +117,14 @@ def main(argv=None):
     if args.vio:
         return compare_vio(args.vio, args.port_gather, args.jax_pallas)
     if args.matrix:
-        compare_matrix(args.width, args.frames, args.scenes, args.configs,
-                       args.route)
+        if args.precision == "f64":
+            _jax_harness_f64()
+        rows = compare_matrix(args.width, args.frames, args.scenes,
+                              args.configs, args.route, args.geometry,
+                              args.precision, args.against, args.trace)
+        if args.save:
+            with open(args.save, "w") as f:
+                json.dump({"precision": args.precision, "rows": rows}, f)
         return 0
     if args.config is None:
         ap.error("a config file, or --vio RUN")
@@ -136,10 +170,185 @@ def main(argv=None):
     return 0
 
 
+# The harness tests' small geometry (tests/test_torch_evaluation.py).
+SMALL = dict(H=120, W=188, fps=10.0, seed=11, capacity=96, window=5,
+             levels=3, cell_size=24, detect_margin=10,
+             translation_threshold=0.03, rotation_threshold=0.03)
+
+
+def _jax_harness_f64():
+    """Turn on x64 and make the JAX harness build its rig, states and
+    inputs in float64 (it builds them in float32 itself): the estimator
+    modules' names that rsvio_tpu.utils.evaluation calls are rebound for
+    this process."""
+    import functools
+    import inspect
+
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+
+    from rsvio_tpu.models import estimator as jest
+    from rsvio_tpu.models import estimator_vio as jev
+    from rsvio_tpu.models import pnp as jpnp
+
+    f64 = jnp.float64
+
+    def cast(x):
+        x = jnp.asarray(x)
+        return x.astype(f64) if jnp.issubdtype(x.dtype, jnp.floating) else x
+
+    def steps(make):
+        @functools.wraps(make)
+        def wrapped(*a, **k):
+            step = make(*a, **k)
+            return lambda state, rig, *xs: step(state, rig,
+                                                *(cast(x) for x in xs))
+        return wrapped
+
+    def double(fn):
+        """fn with its dtype parameter defaulting to float64."""
+        n = list(inspect.signature(fn).parameters).index("dtype")
+
+        @functools.wraps(fn)
+        def wrapped(*a, **k):
+            if len(a) <= n:
+                k.setdefault("dtype", f64)
+            return fn(*a, **k)
+        return wrapped
+
+    make_rig = jest.make_rig
+    jest.make_rig = lambda *a: jax.tree.map(cast, make_rig(*a))
+    jest.init_state = double(jest.init_state)
+    jest.make_estimator_step = steps(jest.make_estimator_step)
+    jev.init_vio_state = double(jev.init_vio_state)
+    jev.initialize_vio_state = double(jev.initialize_vio_state)
+    jev.make_vio_estimator_step = steps(jev.make_vio_estimator_step)
+
+    # Under x64 two counts come out int64 where the other lax.cond branch
+    # gives int32, and lax.cond refuses the pair: the RANSAC gate's inlier
+    # count (estimator.py:534-545) and the VIO keyframe's scene-flow kill
+    # count (estimator_vio.py:433-442, :638 / :657). Both go back to int32
+    # (a count's width; no value changes).
+    gate = jpnp.ransac_pnp_gate
+
+    @functools.wraps(gate)
+    def gate32(*a, **k):
+        inliers, ok, count = gate(*a, **k)
+        return inliers, ok, count.astype(jnp.int32)
+    jpnp.ransac_pnp_gate = gate32
+    build = jev._build_vio_stages
+
+    @functools.wraps(build)
+    def build32(*a, **k):
+        st = build(*a, **k)
+        kf_pre = st.kf_pre
+
+        def kf_pre32(*a, **k):
+            prep = kf_pre(*a, **k)
+            return prep._replace(n_dyn=prep.n_dyn.astype(jnp.int32))
+        return st._replace(kf_pre=kf_pre32)
+    jev._build_vio_stages = build32
+
+
+def _num(v, fmt):
+    return "-" if v is None else format(v, fmt)
+
+
+TRACE_FIELDS = ("n_tracked", "n_landmarks", "n_ransac_inliers",
+                "n_pnp_candidates", "is_keyframe", "pnp_success",
+                "ba_success")
+
+
+class _Trace:
+    """--trace: both packages' per-frame step outputs, and the inputs of
+    the port's RANSAC gate by frame."""
+
+    def __init__(self):
+        import numpy as np
+
+        from rsvio_tpu.models import estimator as jest
+        from rsvio_tpu.models import estimator_vio as jev
+        from rsvio_tpu_torch.models import estimator as test_
+        from rsvio_tpu_torch.models import estimator_vio as tev
+        from rsvio_tpu_torch.models import pnp as tpnp
+
+        self.out, self.gate_in = {"jax": [], "port": []}, {}
+
+        def wrap(side, make):
+            def wrapped(*a, **k):
+                step = make(*a, **k)
+
+                def traced(*args):
+                    state, o = step(*args)
+                    self.out[side].append(dict(
+                        T=np.asarray(o.T_W_B, np.float64),
+                        **{f: float(getattr(o, f)) for f in TRACE_FIELDS}))
+                    return state, o
+                return traced
+            return wrapped
+
+        for side, mod, name in (("jax", jest, "make_estimator_step"),
+                                ("jax", jev, "make_vio_estimator_step"),
+                                ("port", test_, "make_estimator_step"),
+                                ("port", tev, "make_vio_estimator_step")):
+            setattr(mod, name, wrap(side, getattr(mod, name)))
+        self.port_gate = gate = tpnp.ransac_pnp_gate
+
+        def recording_gate(*a, **k):
+            self.gate_in[len(self.out["port"])] = (a, k)
+            return gate(*a, **k)
+        tpnp.ransac_pnp_gate = recording_gate
+
+    def report(self):
+        """Print the first frame where the two steps part (and empty the
+        record for the next row)."""
+        import math
+
+        import jax
+        import jax.numpy as jnp
+        import numpy as np
+
+        from rsvio_tpu.models import pnp as jpnp
+
+        out, gate_in = self.out, self.gate_in
+        self.out, self.gate_in = {"jax": [], "port": []}, {}
+        for k, (a, b) in enumerate(zip(out["jax"], out["port"])):
+            dT = float(np.abs(a["T"] - b["T"]).max())
+            diff = {f: (a[f], b[f]) for f in TRACE_FIELDS if a[f] != b[f]}
+            if diff or dT > 1e-9:
+                break
+        else:
+            print("  trace: no frame parts", flush=True)
+            return
+        print(f"  trace: frames 0-{k - 1} agree; frame {k}: max|dT| "
+              f"{dT:.3g}, (jax, port) {diff}", flush=True)
+        if k not in gate_in:
+            return
+        args, kw = gate_in[k]
+        T, T_C_B, lm, obs, mask, _, cfg = args
+        age = kw.get("age")
+        key = jax.random.fold_in(jax.random.PRNGKey(0x5A11AC), k)
+        j = jpnp.ransac_pnp_gate(
+            *(jnp.asarray(x.numpy()) for x in (T, T_C_B, lm, obs, mask)),
+            key, jpnp.PnPConfig(**cfg._asdict()),
+            age=None if age is None else jnp.asarray(age.numpy()))
+        t = self.port_gate(*args, **kw)
+        w = np.clip(age.numpy() / cfg.ransac_age_cap, cfg.ransac_age_floor,
+                    1.0) if age is not None else np.ones(lm.shape[0])
+        for side, (inl, _, count) in (("jax", j), ("port", t)):
+            inl = np.asarray(inl)
+            vote = math.fsum((inl * w[None, :]).ravel().tolist())
+            print(f"  trace: frame {k} gate on the port's inputs, {side}: "
+                  f"{int(count)} inliers, vote {vote!r}", flush=True)
+
+
 def compare_matrix(width, frames, scenes=None, configs=None,
-                   route="gather"):
+                   route="gather", geometry="matrix", precision="f32",
+                   against=None, trace=False):
     """The accuracy matrix's rows through both harnesses on the same JAX
-    frames; prints one line a row and returns the rows."""
+    frames; prints one line a row and returns the rows (dicts with both
+    packages' ATE, drift and positions)."""
     import jax
     import numpy as np
     import torch
@@ -150,20 +359,40 @@ def compare_matrix(width, frames, scenes=None, configs=None,
     from rsvio_tpu_torch.tools import accuracy_matrix as am
     from rsvio_tpu_torch.utils import evaluation as teval
 
-    H, W, levels, cell, margin = am.geometry(width)
+    if geometry == "small":
+        H, W, fps = SMALL["H"], SMALL["W"], SMALL["fps"]
+        geo = {k: v for k, v in SMALL.items()
+               if k not in ("H", "W", "fps", "seed")}
+    else:
+        H, W, levels, cell, margin = am.geometry(width)
+        fps = 20.0
+        geo = dict(capacity=256, window=10, levels=levels, cell_size=cell,
+                   detect_margin=margin)
     backend = "xla" if route == "gather" else "pallas"
+    dtype = torch.float64 if precision == "f64" else torch.float32
+    other = {}
+    if against:
+        with open(against) as f:
+            other = {(r["scene"], r["config"]): r
+                     for r in json.load(f)["rows"]}
     names = [c for c, _ in am.CONFIGS if not configs or c in configs]
+    tracer = _Trace() if trace else None
     rows = []
-    print(f"{W}x{H} frames={frames} levels={levels} cell={cell} "
-          f"margin={margin} route={route}: scene config | ATE jax port (m) "
-          f"| drift jax port (%) | max|dpos| (m)")
+    print(f"{W}x{H} frames={frames} {geo} route={route} {precision}: "
+          f"scene config | ATE jax port (m) | drift jax port (%) | "
+          f"max|dpos| (m)" + (" | jax, port vs --against (m)"
+                              if against else ""))
     for sname in scenes or list(jsyn.MATRIX_SCENES):
         scene_fn, traj_fn = jsyn.MATRIX_SCENES[sname]
         scene, traj = scene_fn(H=H, W=W), traj_fn()
         tscene = tsyn.MATRIX_SCENES[sname][0](H=H, W=W, device="cpu")
-        rng = am.scene_rng(7, sname)
-        kw = am.imu_kwargs(rng)
-        seq = jsyn.generate_sequence(scene, traj, frames, fps=20.0,
+        if geometry == "small":
+            rng = np.random.default_rng(SMALL["seed"])
+            kw = dict(noise_rng=rng, **am.IMU_BIASES, **am.IMU_NOISE)
+        else:
+            rng = am.scene_rng(7, sname)
+            kw = am.imu_kwargs(rng)
+        seq = jsyn.generate_sequence(scene, traj, frames, fps=fps,
                                      imu_rate=200.0, imu_kwargs=kw)
         boot = jeval.static_init_imu(
             traj, rng=rng, gyro_bias=kw["gyro_bias"],
@@ -172,29 +401,52 @@ def compare_matrix(width, frames, scenes=None, configs=None,
         for cname, ckw in am.CONFIGS:
             if cname not in names:
                 continue
-            common = dict(capacity=256, window=10, levels=levels,
-                          cell_size=cell, detect_margin=margin,
-                          backend=backend, **ckw)
+            common = dict(backend=backend, **geo, **ckw)
             if ckw["use_vio"]:
                 common.update(init_gyro=boot[0], init_accel=boot[1])
-            jr = jeval.run_synthetic_sequence(seq, scene, **common)
+            # JAX's Pallas kernel takes float32 only (klt_kernel.py:710;
+            # the port casts around its kernel), so in float64 on the
+            # kernel route only the port runs.
+            port_only = precision == "f64" and route == "kernel"
+            jr = None if port_only else jeval.run_synthetic_sequence(
+                seq, scene, **common)
             draws = None
             if ckw.get("ransac"):
                 key = jax.random.PRNGKey(0x5A11AC)
+                # JAX draws in the step's dtype (pnp.py:298).
                 jd = [np.array(jax.random.gumbel(
-                    jax.random.fold_in(key, k), (ckw["ransac"], 512),
-                    dtype=jax.numpy.float32)) for k in range(frames)]
+                    jax.random.fold_in(key, k), (ckw["ransac"],
+                                                 geo["capacity"] * 2),
+                    dtype=jax.numpy.float64 if precision == "f64"
+                    else jax.numpy.float32)) for k in range(frames)]
                 draws = (lambda fid, shape, dtype, device, jd=jd:
                          torch.from_numpy(jd[fid]).to(dtype=dtype,
                                                       device=device))
             tr = teval.run_synthetic_sequence(seq, tscene, device="cpu",
-                                              draws=draws, **common)
-            gap = float(np.abs(tr.positions - jr.positions).max())
-            rows.append((sname, cname, jr.ate_rmse, tr.ate_rmse,
-                         jr.drift_pct, tr.drift_pct, gap))
-            print(f"{sname} {cname} | {jr.ate_rmse:.4f} {tr.ate_rmse:.4f} | "
-                  f"{jr.drift_pct:.2f} {tr.drift_pct:.2f} | {gap:.2e}",
-                  flush=True)
+                                              dtype=dtype, draws=draws,
+                                              **common)
+            row = dict(scene=sname, config=cname, ate_jax=None,
+                       ate_port=tr.ate_rmse, drift_jax=None,
+                       drift_port=tr.drift_pct, gap=None, jax=None,
+                       port=tr.positions.tolist())
+            if jr is not None:
+                row.update(ate_jax=jr.ate_rmse, drift_jax=jr.drift_pct,
+                           gap=float(np.abs(tr.positions
+                                            - jr.positions).max()),
+                           jax=jr.positions.tolist())
+            rows.append(row)
+            line = (f"{sname} {cname} | {_num(row['ate_jax'], '.4f')} "
+                    f"{tr.ate_rmse:.4f} | {_num(row['drift_jax'], '.2f')} "
+                    f"{tr.drift_pct:.2f} | {_num(row['gap'], '.2e')}")
+            o = other.get((sname, cname))
+            if o:
+                line += " | " + " ".join(_num(
+                    None if o[k] is None or row[k] is None else
+                    np.abs(np.asarray(o[k]) - np.asarray(row[k])).max(),
+                    ".2e") for k in ("jax", "port"))
+            print(line, flush=True)
+            if tracer:
+                tracer.report()
     return rows
 
 
