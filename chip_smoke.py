@@ -34,14 +34,14 @@ them. Phases, each of which raises on failure:
                same composition run through the plain klt_level_reference
                (so K2 is checked at every level and start this path gives
                it), and the whole with one fused K1 launch.
-  5. main    — the port's make_estimator_step at the EuRoC shape (752x480,
-               6 levels, 256 slots, window 10, default EstimatorConfig) on
-               the bench scene: 6 warm-up frames, 60 timed frames, a 20-frame
-               blocked quality pass and a 10-frame per-stage split. Requires
-               exactly 2 K1 launches per frame and the bench.py quality
-               floors (tracked_mean >= 80, kill rate <= 0.3, finite pose,
-               pose_ok on every frame, BA fired in the quality pass,
-               drift <= 2%).
+  5. main    — the port's make_estimator_step (eager) at the EuRoC shape
+               (752x480, 6 levels, 256 slots, window 10, default
+               EstimatorConfig) on the bench scene: 6 warm-up frames, 60
+               timed frames, a 20-frame blocked quality pass and a 10-frame
+               per-stage split. Requires exactly 2 K1 launches per frame
+               and the bench.py quality floors (tracked_mean >= 80, kill
+               rate <= 0.3, finite pose, pose_ok on every frame, BA fired
+               in the quality pass, drift <= 2%).
   6. rotation — the same step with KLTConfig(track_rotation=True): 6 warm-up,
                30 timed and 20 quality frames, exactly 2 K1-rot launches per
                frame, the same floors.
@@ -210,6 +210,27 @@ them. Phases, each of which raises on failure:
                printed, not held on the occlusion runs (the transit's
                outcome swings with the IMU-noise seed and the profile in
                the JAX package itself, tools/accuracy_matrix.py:55-72).
+ 14. graph   — runs right after phase 9 (options), whose eager runs it
+               repeats: models.estimator.make_compiled_estimator_step (the
+               step as CUDA graphs of its segments, the counterpart of
+               jax.jit(step)) on the frames, rig and config of main (6
+               warm-up frames, which capture the variants met by then, 60
+               timed, 20 blocked), rotation, each shipped config and the
+               options phase's marg run (6 warm-up, 30 timed, 20 blocked
+               each). Every call after the first runs under
+               torch.cuda.set_sync_debug_mode("error"). Each run is held to
+               the floors of its eager run, its poses within 1e-5 m of the
+               eager step's on the same frames, exactly 2 K1 (K1-rot)
+               launches a frame and one blocking read a frame (the step's
+               wait for is_kf); prints frames/s and the blocked median
+               beside the eager run's, the graphs made, each variant's
+               ms of first run and capture, and the device time of a
+               replay alone of segment M with PnP and of segment K with
+               and without a keyframe (CUDA events behind a GPU spin,
+               median of 25). The cli phase's run_euroc,
+               run_tum and run_4seasons runs go through the compiled step
+               too (the CLI takes it on CUDA), euroc under its check against
+               the eager step driven directly.
 
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
@@ -656,41 +677,63 @@ def fusion_ab(dev):
             "launches_fusion": c["klt_bidir"]}, c
 
 
-def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
+def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
+           compiled=False):
     """Warm-up, timed and blocked quality frames of one estimator config;
     returns (summary dict, launch counts of the whole run, per-frame
     records of the warm-up, timed and quality frames: n_tracked,
     n_ransac_inliers, n_pnp_candidates, health, the window's fill before
-    the frame and n_dyn_killed, as numpy arrays). `probe`: a dict the step
-    adds its option counts to (make_estimator_step)."""
+    the frame, n_dyn_killed, is_keyframe and T_W_B, as numpy arrays). `probe`: a dict
+    the step adds its option counts to (make_estimator_step). `compiled`:
+    the step as CUDA graphs (make_compiled_estimator_step; no probe, no
+    split), every call after the first under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync other than the
+    step's one wait a frame raises; the summary adds the step's waits a
+    frame after the first call, its replays and each variant's ms of first
+    run and capture, and the step comes back as a fourth result."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.models import estimator as est
 
-    step = est.make_estimator_step(cfg, probe=probe)
+    if compiled:
+        step = est.make_compiled_estimator_step(cfg, device=dev)
+    else:
+        step = est.make_estimator_step(cfg, probe=probe)
     split = est.make_estimator_split_step(cfg, probe=probe)
     state = est.init_state(cfg, device=dev)
-    rec = []     # device tensors, read after the run: no sync per frame
+    rec, poses = [], []   # device tensors, read after the run
+
+    def call(frame):
+        if not compiled or not rec:
+            return step(state, rig, *frame)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(state, rig, *frame)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
 
     def record(kf_before, out):
         rec.append(torch.stack([
             out.n_tracked.double(), out.n_ransac_inliers.double(),
             out.n_pnp_candidates.double(), out.health.double(),
-            kf_before.double(), out.n_dyn_killed.double()]))
+            kf_before.double(), out.n_dyn_killed.double(),
+            out.is_keyframe.double()]))
+        poses.append(out.T_W_B.clone())
 
     reset_counts()
     k = 0
     for _ in range(WARMUP):
         kf_before = state.kf_count
-        state, out = step(state, rig, *frames[k])
+        state, out = call(frames[k])
         record(kf_before, out)
         k += 1
+    reads0 = step.host_reads if compiled else 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
         kf_before = state.kf_count
-        state, out = step(state, rig, *frames[k])
+        state, out = call(frames[k])
         record(kf_before, out)
         k += 1
     torch.cuda.synchronize()
@@ -707,7 +750,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
     for _ in range(QUAL):
         kf_before = state.kf_count
         t1 = time.perf_counter()
-        state, out = step(state, rig, *frames[k])
+        state, out = call(frames[k])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         record(kf_before, out)
@@ -723,7 +766,9 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
     t_final, t_truth, drift = drift_at(k - 1, out.T_W_B)
     per_frame = dict(zip(
         ("n_tracked", "n_ransac_inliers", "n_pnp_candidates", "health",
-         "kf_before", "n_dyn_killed"), torch.stack(rec).cpu().numpy().T))
+         "kf_before", "n_dyn_killed", "is_keyframe"),
+        torch.stack(rec).cpu().numpy().T))
+    per_frame["T_W_B"] = torch.stack(poses).double().cpu().numpy()
 
     stage_ms = {name: [] for name in est.STAGE_NAMES}
     for _ in range(split_frames):
@@ -743,6 +788,13 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None):
     if split_frames:
         summary["stage_median_ms"] = {n: statistics.median(v)
                                       for n, v in stage_ms.items()}
+    if compiled:
+        summary.update(
+            host_reads_per_frame=(step.host_reads - reads0) / (k - WARMUP),
+            replays=step.graphs.replays,
+            capture_ms={variant_name(key): v
+                        for key, v in step.graphs.capture_ms.items()})
+        return summary, c, per_frame, step
     return summary, c, per_frame
 
 
@@ -771,8 +823,9 @@ def main_phase(frames, dev):
            fe.klt.max_iterations, cfg.window_size, tuple(cfg.image_shape))
           == (256, 50, 19, 6, 20, 10, (480, 752)),
           "default config is not the EuRoC bench shape")
-    s, c, _ = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, TIMED,
-                     split_frames=SPLIT)
+    rig = bench_scene.make_rig(dev)
+    s, c, pf = run_vo(cfg, frames, rig, dev, TIMED, split_frames=SPLIT)
+    EAGER["main"] = (cfg, rig, frames, TIMED, s, pf)
     print("main: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": 2 * s["frames"], "klt_bidir_rot": 0,
                 "klt_level": 0},
@@ -789,13 +842,116 @@ def rotation_phase(frames, dev):
 
     cfg = est.EstimatorConfig(
         frontend=FrontendConfig(klt=KLTConfig(track_rotation=True)))
-    s, c, _ = run_vo(cfg, frames, bench_scene.make_rig(dev), dev, ROT_TIMED)
+    rig = bench_scene.make_rig(dev)
+    s, c, pf = run_vo(cfg, frames, rig, dev, ROT_TIMED)
+    EAGER["rotation"] = (cfg, rig, frames, ROT_TIMED, s, pf)
     print("rotation: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": 0, "klt_bidir_rot": 2 * s["frames"],
                 "klt_level": 0},
           f"rotation: launches {c} for {s['frames']} frames")
     check_floors("rotation", s)
     return c["klt_bidir_rot"]
+
+
+# The eager runs the graph phase replays through the compiled step, by name:
+# (config, rig, frames, timed frames, summary, per-frame records).
+EAGER = {}
+GRAPH_RUNS = ("main", "rotation", *CONFIGS, "marg")
+GRAPH_POSE_TOL = 1e-5   # m: the compiled step's poses vs the eager step's
+# The variants timed alone: M with PnP, K with the solve, K without a
+# keyframe (utils.graphs keys of CompiledStep).
+GRAPH_TIMED = (("motion", True), ("opt", True, True), ("opt", False, False))
+
+
+def graph_phase(dev):
+    """The compiled step (make_compiled_estimator_step, CUDA graphs) on the
+    eager runs of main, rotation, each shipped config and marg (module
+    docstring, phase 14); returns the launch counts of all its runs."""
+    import numpy as np
+
+    total = {"klt_bidir": 0, "klt_bidir_rot": 0, "klt_level": 0}
+    for name in GRAPH_RUNS:
+        t0 = time.perf_counter()
+        cfg, rig, frames, timed, se, pfe = EAGER[name]
+        s, c, pf, step = run_vo(cfg, frames, rig, dev, timed, compiled=True)
+        n = s["frames"]
+        gap = float(np.abs(pf["T_W_B"][:, :3, 3]
+                           - pfe["T_W_B"][:n, :3, 3]).max())
+        kernel = ("klt_bidir_rot" if cfg.frontend.klt.track_rotation
+                  else "klt_bidir")
+        drift_key = drift_key_of(cfg)
+        line = {k: s[k] for k in (
+            "frames_per_s", "blocked_median_ms", "tracked_mean",
+            "bidir_kill_rate", "drift_rel", "drift_rel_last_kf",
+            "host_reads_per_frame", "replays", "capture_ms")}
+        # Each frame-typical variant's replay alone (the graphs read and
+        # write only the step's fixed buffers, so replays repeat the last
+        # frame's work), behind a GPU spin: device time only.
+        keys = [k for k in GRAPH_TIMED if k in step.graphs.graphs]
+        line["device_ms"] = {
+            variant_name(key): cuda_median_ms(
+                lambda key=key: step.graphs.run(key, None), spin=True)
+            for key in keys}
+        if len(keys) == len(GRAPH_TIMED):
+            # The timed frames' device time from the variants', and its
+            # share of their wall time.
+            d = line["device_ms"]
+            kf = float(pf["is_keyframe"][WARMUP:WARMUP + timed].mean())
+            est = (d["motion/True"] + kf * d["opt/True/True"]
+                   + (1.0 - kf) * d["opt/False/False"])
+            line.update(kf_share_timed=kf, device_ms_per_frame=est,
+                        device_share=est * s["frames_per_s"] / 1e3)
+        if name == "main":
+            line["profile"] = graph_profile(step, keys)
+        line.update(
+            eager_frames_per_s=se["frames_per_s"],
+            eager_blocked_median_ms=se["blocked_median_ms"],
+            speedup_fps=s["frames_per_s"] / se["frames_per_s"],
+            graphs=len(s["capture_ms"]), max_pose_gap_m=gap,
+            ba_fires=s["ba_fires_in_quality_pass"], pose_ok=s["pose_ok"],
+            launches=c, frames=n, drift_checked=drift_key,
+            seconds=time.perf_counter() - t0)
+        print(f"graph[{name}]: " + json.dumps(line), flush=True)
+        want = {"klt_bidir": 0, "klt_bidir_rot": 0, "klt_level": 0}
+        want[kernel] = 2 * n
+        check(c == want, f"graph[{name}]: launches {c} for {n} frames")
+        check(s["host_reads_per_frame"] == 1.0,
+              f"graph[{name}]: {s['host_reads_per_frame']} blocking reads "
+              f"a frame")
+        check(gap <= GRAPH_POSE_TOL,
+              f"graph[{name}]: poses {gap} m from the eager step's")
+        check_floors(f"graph[{name}]", s, drift_key)
+        for k in total:
+            total[k] += c[k]
+    return total
+
+
+def variant_name(key):
+    return "/".join(str(x) for x in key)
+
+
+def graph_profile(step, keys):
+    """torch.profiler over one replay of each variant `keys` of the compiled
+    step: its device events (kernels, copies), their summed device time,
+    the mean per event and the largest one's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for key in keys:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step.graphs.run(key, None)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.device_time_total for e in ev]
+        total = sum(us)
+        out[variant_name(key)] = {
+            "device_events": len(ev), "device_ms": total / 1e3,
+            "us_per_event": total / max(len(ev), 1),
+            "largest_share": max(us) / total if total else None}
+    return out
 
 
 def mono_phase(tex, dev, medians):
@@ -901,6 +1057,7 @@ def configs_phase(tex, dev, medians):
         kinds = (ecfg.cam_kind_l, ecfg.cam_kind_r)
         s, c, pf = run_vo(ecfg, frames, rig, dev, CFG_TIMED,
                           split_frames=SPLIT)
+        EAGER[name] = (ecfg, rig, frames, CFG_TIMED, s, pf)
         fe = ecfg.frontend
         drift_key = drift_key_of(ecfg)
         line = {k: s[k] for k in (
@@ -965,6 +1122,8 @@ def options_phase(tex, frames, dev):
         probe = {}
         s, c, pf = run_vo(ecfg, run_frames, rig, dev, OPT_TIMED,
                           split_frames=SPLIT, probe=probe)
+        if name in GRAPH_RUNS:
+            EAGER[name] = (ecfg, rig, run_frames, OPT_TIMED, s, pf)
         probe = {k: int(v) for k, v in probe.items()}
         # The constant-velocity seed's feedback loop (module docstring,
         # phase 9): the reference diverges alike, so drift is not held.
@@ -2546,6 +2705,7 @@ def main():
     mono_launches = phase("mono", mono_phase, tex, dev, medians)
     config_launches = phase("configs", configs_phase, tex, dev, medians)
     option_launches = phase("options", options_phase, tex, frames, dev)
+    graph_launches = phase("graph", graph_phase, dev)
     vio_launches = phase("vio", vio_phase, tex, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
     dist_launches = phase("dist", dist_phase)
@@ -2565,8 +2725,11 @@ def main():
                       "launches_vio": vio_launches,
                       "launches_cli": cli_launches,
                       "launches_dist": dist_launches,
-                      "launches_eval": eval_launches, **fusion}),
-        kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]]),
+                      "launches_eval": eval_launches,
+                      "launches_graph": graph_launches["klt_bidir"],
+                      **fusion}),
+        kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]],
+                     {"launches_graph": graph_launches["klt_bidir_rot"]}),
         kernel_entry("klt_level", level_launches,
                      [kres["level0"], kres["level3"], kres["level0_rot"],
                       kres["level3_rot"]],

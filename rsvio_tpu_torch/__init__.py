@@ -33,5 +33,8 @@ matmul-precision switch (``utils.precision.pin_fp32``), the native PNG
 loader (``data.png``) and the Pallas internals. Both TPU kernels of the JAX
 package have hand-written Hopper counterparts in ``ops.cuda.klt_kernel``
 (source in ``csrc/``): the fused bidirectional KLT ``klt_bidir``
-(translation and rotation) and the per-level ``klt_level``.
+(translation and rotation) and the per-level ``klt_level``. The VO step
+also runs compiled, as JAX's ``jax.jit(step)`` does:
+``models.estimator.make_compiled_estimator_step`` replays CUDA graphs of
+the step's segments (``utils.graphs``).
 """

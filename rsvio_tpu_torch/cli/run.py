@@ -195,14 +195,16 @@ def fetch(values: dict) -> dict:
 
 def is_kernel_failure(e: BaseException) -> bool:
     """A failure of the kernel layer (a library that did not build, load
-    or launch; a CUDA error), which the loop raises instead of skipping
-    the frame."""
+    or launch; a CUDA graph that did not capture or replay; a CUDA error),
+    which the loop raises instead of skipping the frame."""
     import torch
 
     from ..ops.cuda.build import KernelError
+    from ..utils.graphs import GraphError
 
     accel = getattr(torch, "AcceleratorError", None)
-    return (isinstance(e, (KernelError, torch.cuda.OutOfMemoryError))
+    return (isinstance(e, (KernelError, GraphError,
+                           torch.cuda.OutOfMemoryError))
             or (accel is not None and isinstance(e, accel))
             or (isinstance(e, RuntimeError) and "CUDA" in str(e)))
 
@@ -271,7 +273,11 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
             stage_step = est.make_estimator_split_step(ecfg)
             log.info("stage-timing mode: synchronized estimator stages "
                      "(%s)", "/".join(est.STAGE_NAMES))
-        step = est.make_estimator_step(ecfg)
+        # On the card the VO step runs as CUDA graphs, as the JAX CLI runs
+        # its jitted step; --stage-timing keeps the synchronized stages.
+        step = (est.make_compiled_estimator_step(ecfg, device=dev)
+                if dev.type == "cuda" and stage_step is None
+                else est.make_estimator_step(ecfg))
         state = est.init_state(ecfg, dtype=dtype, device=dev)
     elif pcfg.stage_timing:
         log.warning("--stage-timing is VO-only; ignored in VIO mode")

@@ -20,14 +20,23 @@ options: marginalization of evicted keyframes into a pose prior
 
 Control flow. The JAX step is one jitted function whose data-dependent
 branches are ``lax.cond``s: ``pnp_ready`` in run_motion, ``is_kf`` and
-``full_now`` in stage_opt. Here they are host branches on ``bool(tensor)``,
-one device sync per branch per frame, as rsvio_tpu/parallel/dist_estimator.py
-already does in JAX. The RANSAC gate runs inside the ``pnp_ready`` branch
-and reads the frame id (which seeds its draws) in the same sync. Every
-other data-dependent choice (the marginalized solve's gauge fix and prior
-update, the CV seed and its bound, culling, refinement, the flow gate) is
-a device select, so the options add no sync. Making the step capturable in
-a CUDA graph (so these syncs go) is later work (ROADMAP A10).
+``full_now`` in stage_opt. Here the step is cut at them into two segments
+(``Segments``): M (frames, track, motion) for a given pnp_ready, and K (the
+keyframe stage) for a given is_kf and full_now; inside them every other
+data-dependent choice (the RANSAC gate's pick, the marginalized solve's
+gauge fix and prior update, the CV seed and its bound, culling,
+refinement, the flow gate) is a device select. Two steps run the segments:
+
+- ``make_estimator_step`` runs them eagerly and reads each branch from the
+  device, as rsvio_tpu/parallel/dist_estimator.py does in JAX: one read a
+  frame for pnp_ready (with the RANSAC gate, together with the frame id
+  that seeds its draws), one for is_kf, one more on a keyframe for
+  full_now.
+- ``make_compiled_estimator_step``, the counterpart of ``jax.jit(step)``,
+  replays CUDA graphs of the five segment variants. It mirrors kf_count
+  and frame_id on the host, from which pnp_ready, full_now and the draws'
+  seed follow, and reads only is_kf: one blocking read a frame
+  (``CompiledStep``).
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops import cameras, lie, projection, pyramid
+from ..ops.cuda import klt_kernel
 from ..ops.projection import triangulate_stereo
+from ..utils import graphs as graph_mod
 from ..utils.precision import pin_fp32
 from . import ba as ba_mod
 from . import frontend as frontend_mod
@@ -366,24 +377,53 @@ class MotionOut(NamedTuple):
     health: torch.Tensor = 1.0  # () track health in [0, 1] (1 gate off)
 
 
+def pnp_ready(cfg: EstimatorConfig, kf_count):
+    """Whether PnP engages on a frame that starts with kf_count keyframes
+    (an int or a 0-d tensor): once any landmark exists, or with
+    track_before_full=False only once the window is full."""
+    return kf_count >= (1 if cfg.track_before_full else cfg.window_size)
+
+
+def full_now(cfg: EstimatorConfig, kf_count):
+    """Whether a keyframe inserted into a window of kf_count keyframes (an
+    int or a 0-d tensor) runs the window solve: once two keyframes exist,
+    or with track_before_full=False once the window is full (the new count
+    min(kf_count + 1, W) reaches the threshold, which is at most W)."""
+    return kf_count + 1 >= (2 if cfg.track_before_full else cfg.window_size)
+
+
+def read_motion_branch(cfg: EstimatorConfig, kf_count, frame_id, draws,
+                       n_slots: int, dtype, device):
+    """The host's side of JAX's lax.cond on pnp_ready: one read of the
+    state's counts, which with the RANSAC gate on also brings the frame id
+    that seeds its draws. Returns (ready, the gate's Gumbel draws
+    (K, 2 n_slots) or None)."""
+    if cfg.pnp.ransac_hypotheses <= 0:
+        return bool(pnp_ready(cfg, kf_count)), None
+    ready, fid = torch.stack([pnp_ready(cfg, kf_count).to(torch.int64),
+                              frame_id.to(torch.int64)]).tolist()
+    if not ready:
+        return False, None
+    return True, draws(fid, (cfg.pnp.ransac_hypotheses, 2 * n_slots), dtype,
+                       device)
+
+
 def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
                obs_cur_mask, lm, lm_fid, lm_birth, kf_count, last_kf_T_W_B,
-               frame_id, T_pred, T_gate_seed, T_prior, T_fallback,
-               obs_w_slots=None, cv_bound_check=False, health_prev=None,
-               draws=gumbel_draws) -> MotionOut:
+               T_pred, T_gate_seed, T_prior, T_fallback, ready: bool,
+               gumbel=None, obs_w_slots=None, cv_bound_check=False,
+               health_prev=None) -> MotionOut:
     """PnP motion tracking + keyframe policy: the optional RANSAC pre-gate
     (verified against the frozen birth map lm_birth, hypotheses seeded at
-    T_gate_seed, draws from `draws(frame_id, shape, dtype, device)`), the
-    track health from its inlier fraction, the LM PnP polish with optional
-    score weights obs_w_slots and health-scaled motion prior, the
-    keyframe-relative bound of the constant-velocity seed
-    (cv_bound_check), the numerical-health recovery, the keyframe test and
-    the outlier kill."""
+    T_gate_seed, on the Gumbel draws `gumbel`), the track health from its
+    inlier fraction, the LM PnP polish with optional score weights
+    obs_w_slots and health-scaled motion prior, the keyframe-relative bound
+    of the constant-velocity seed (cv_bound_check), the numerical-health
+    recovery, the keyframe test and the outlier kill. `ready` is the host's
+    pnp_ready (JAX's lax.cond on it): the gate and PnP run only when it is
+    true (read_motion_branch reads it; the compiled step mirrors it)."""
     dev, dtype = T_pred.device, T_pred.dtype
     window_full = kf_count >= cfg.window_size
-    # PnP engages once any landmark exists, or with track_before_full=False
-    # only once the window is full.
-    pnp_ready = (kf_count >= 1) if cfg.track_before_full else window_full
 
     lm_ok = (lm_fid == table.fid) & (lm_fid >= 0) & table.alive
     pnp_mask = obs_cur_mask & lm_ok[None, :]
@@ -394,16 +434,7 @@ def run_motion(cfg: EstimatorConfig, rig: CameraRig, table, obs_cur,
     inl_mask, ransac_ok = pnp_mask, false
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     health = torch.ones((), dtype=dtype, device=dev)
-    # Host branch (JAX: lax.cond on pnp_ready): one sync per frame, which
-    # with the gate on also brings the frame id that seeds its draws.
-    if use_ransac:
-        ready, fid = torch.stack([pnp_ready.to(torch.int64),
-                                  frame_id.to(torch.int64)]).tolist()
-    else:
-        ready = bool(pnp_ready)
     if ready and use_ransac:
-        gumbel = draws(fid, (cfg.pnp.ransac_hypotheses, 2 * lm.shape[0]),
-                       dtype, dev)
         inl_mask, ransac_ok, n_inl = pnp_mod.ransac_pnp_gate(
             T_gate_seed, rig.T_C_B, lm_birth, obs_cur, pnp_mask, gumbel,
             cfg.pnp, age=table.age)
@@ -502,7 +533,7 @@ def _count(probe, key, mask):
         probe[key] = probe.get(key, 0) + mask.to(torch.int64).sum()
 
 
-def _build_stages(cfg: EstimatorConfig, draws, probe=None,
+def _build_stages(cfg: EstimatorConfig, probe=None,
                   window_solvers=None) -> Stages:
     check_config(cfg)
     solvers = ba_mod if window_solvers is None else window_solvers
@@ -525,7 +556,7 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None,
         return table, fstats, obs_cur, obs_cur_mask
 
     def stage_motion(state: EstimatorState, rig: CameraRig, table, obs_cur,
-                     obs_cur_mask) -> MotionOut:
+                     obs_cur_mask, ready: bool, gumbel) -> MotionOut:
         # Init from the current (last-optimized) pose, or from the guarded
         # constant-velocity seed; the prior anchor is always the measured
         # previous pose.
@@ -537,12 +568,12 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None,
         return run_motion(
             cfg, rig, table, obs_cur, obs_cur_mask, state.lm, state.lm_fid,
             state.lm_birth, state.kf_count, state.last_kf_T_W_B,
-            state.frame_id, T_pred=T_pred, T_gate_seed=state.T_W_B,
-            T_prior=state.T_W_B, T_fallback=state.T_W_B,
+            T_pred=T_pred, T_gate_seed=state.T_W_B, T_prior=state.T_W_B,
+            T_fallback=state.T_W_B, ready=ready, gumbel=gumbel,
             obs_w_slots=(effective_weights(cfg, table)
                          if cfg.use_obs_weights else None),
             cv_bound_check=cfg.pnp_cv_predict,
-            health_prev=state.health_ema, draws=draws)
+            health_prev=state.health_ema)
 
     def stage_kf_pre(state: EstimatorState, rig: CameraRig, table, obs_cur,
                      obs_cur_mask, T_cur, health) -> KFPrep:
@@ -647,20 +678,21 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None,
         return kf_T, lm, lm_fid, T_new
 
     def stage_opt(state: EstimatorState, rig: CameraRig, pyr0, pyr1, table,
-                  fstats, obs_cur, obs_cur_mask, mo: MotionOut):
+                  fstats, obs_cur, obs_cur_mask, mo: MotionOut, is_kf: bool,
+                  solve: bool):
+        """The keyframe stage for the host's is_kf and, on a keyframe,
+        full_now (`solve`): JAX's lax.conds on both."""
         dev = mo.T_cur.device
         T_cur = mo.T_cur
         if cfg.pnp.ransac_hypotheses > 0 and cfg.pnp_ransac_kill:
             table, obs_cur_mask, lm_fid0 = excise_outliers(
                 table, obs_cur_mask, state.lm_fid, mo.kill)
             state = state._replace(lm_fid=lm_fid0)
-        # Host branch (JAX: lax.cond on is_kf): one sync per frame.
-        if bool(mo.is_kf):
+        if is_kf:
             prep = stage_kf_pre(state, rig, table, obs_cur, obs_cur_mask,
                                 T_cur, mo.health)
-            # Host branch (JAX: lax.cond on full_now): one sync per keyframe.
             # A skipped solve passes the prior through unchanged.
-            if bool(prep.full_now):
+            if solve:
                 res_T, res_lm, ba_ok, ba_it, ba_cost, marg_prior = ba_solve(
                     prep, rig, state.marg_prior)
             else:
@@ -717,6 +749,52 @@ def _build_stages(cfg: EstimatorConfig, draws, probe=None,
                   motion=stage_motion, opt=stage_opt)
 
 
+class MotionSeg(NamedTuple):
+    """Segment M's results: the frame's pyramids, the tracked table and its
+    counts, this frame's observations and the motion stage's outputs."""
+    pyr0: tuple
+    pyr1: tuple
+    table: FeatureTable
+    fstats: dict
+    obs_cur: torch.Tensor
+    obs_cur_mask: torch.Tensor
+    mo: MotionOut
+
+
+class Segments(NamedTuple):
+    """The step cut at its three branch points (JAX's lax.conds on
+    pnp_ready, is_kf and full_now), each branch a host argument:
+    motion(state, rig, img0, img1, ready, gumbel) -> MotionSeg (segment M:
+    frames, track, motion) and opt(state, rig, seg, is_kf, solve) ->
+    (state, FrameOutput) (segment K: the keyframe stage)."""
+    motion: callable
+    opt: callable
+
+
+def _build_segments(st: Stages) -> Segments:
+    def motion(state, rig, img0, img1, ready: bool, gumbel) -> MotionSeg:
+        pyr0, pyr1 = st.frames(img0, img1)
+        table, fstats, obs_cur, obs_cur_mask = st.track(state, rig, pyr0,
+                                                        pyr1)
+        mo = st.motion(state, rig, table, obs_cur, obs_cur_mask, ready,
+                       gumbel)
+        return MotionSeg(pyr0, pyr1, table, fstats, obs_cur, obs_cur_mask,
+                         mo)
+
+    def opt(state, rig, seg: MotionSeg, is_kf: bool, solve: bool):
+        return st.opt(state, rig, *seg, is_kf, solve)
+
+    return Segments(motion=motion, opt=opt)
+
+
+def read_opt_branch(cfg: EstimatorConfig, state: EstimatorState,
+                    mo: MotionOut):
+    """The host's side of JAX's lax.conds on is_kf and full_now: one read a
+    frame, and one more on a keyframe. Returns (is_kf, solve)."""
+    is_kf = bool(mo.is_kf)
+    return is_kf, is_kf and bool(full_now(cfg, state.kf_count))
+
+
 def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
                         probe=None, window_solvers=None):
     """Build the per-frame step (state, rig, img0, img1) -> (state, out).
@@ -733,17 +811,20 @@ def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
     produced the next prior). `window_solvers`: the window solve's
     functions, an object with ``solve_ba`` and ``solve_ba_marginalized``
     of models.ba's signatures (default models.ba itself;
-    parallel.dist_estimator passes the landmark-sharded ones)."""
+    parallel.dist_estimator passes the landmark-sharded ones).
+
+    The step runs the segments eagerly and reads its branches from the
+    device: two blocking reads a frame, three on a keyframe
+    (make_compiled_estimator_step mirrors them on the host instead)."""
     pin_fp32()
-    st = _build_stages(cfg, draws, probe, window_solvers)
+    sg = _build_segments(_build_stages(cfg, probe, window_solvers))
 
     def step(state: EstimatorState, rig: CameraRig, img0, img1):
-        pyr0, pyr1 = st.frames(img0, img1)
-        table, fstats, obs_cur, obs_cur_mask = st.track(state, rig, pyr0,
-                                                        pyr1)
-        mo = st.motion(state, rig, table, obs_cur, obs_cur_mask)
-        return st.opt(state, rig, pyr0, pyr1, table, fstats, obs_cur,
-                      obs_cur_mask, mo)
+        ready, gumbel = read_motion_branch(
+            cfg, state.kf_count, state.frame_id, draws, state.lm.shape[0],
+            state.T_W_B.dtype, state.T_W_B.device)
+        seg = sg.motion(state, rig, img0, img1, ready, gumbel)
+        return sg.opt(state, rig, seg, *read_opt_branch(cfg, state, seg.mo))
 
     return step
 
@@ -760,7 +841,7 @@ def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
     make_estimator_step; the syncs make it slower, so use it for diagnosis.
     """
     pin_fp32()
-    st = _build_stages(cfg, draws, probe, window_solvers)
+    st = _build_stages(cfg, probe, window_solvers)
 
     def sync(device):
         if device.type == "cuda":
@@ -777,10 +858,14 @@ def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
         tr = st.track(state, rig, pyr0, pyr1)
         sync(dev)
         t2 = time.perf_counter()
-        mo = st.motion(state, rig, tr[0], tr[2], tr[3])
+        ready, gumbel = read_motion_branch(
+            cfg, state.kf_count, state.frame_id, draws, state.lm.shape[0],
+            state.T_W_B.dtype, state.T_W_B.device)
+        mo = st.motion(state, rig, tr[0], tr[2], tr[3], ready, gumbel)
         sync(dev)
         t3 = time.perf_counter()
-        new_state, out = st.opt(state, rig, pyr0, pyr1, *tr, mo)
+        new_state, out = st.opt(state, rig, pyr0, pyr1, *tr, mo,
+                                *read_opt_branch(cfg, state, mo))
         sync(dev)
         t4 = time.perf_counter()
         for name, a, b in zip(STAGE_NAMES, (t0, t1, t2, t3), (t1, t2, t3, t4)):
@@ -788,3 +873,161 @@ def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
         return new_state, out, times
 
     return step
+
+
+# Kernel launch counters a replay carries over (utils.graphs.Graphs).
+KERNEL_COUNTERS = ((klt_kernel.klt_bidir, "launches"),
+                   (klt_kernel.klt_bidir, "rot_launches"),
+                   (klt_kernel.klt_level, "launches"))
+
+
+class CompiledStep:
+    """The per-frame step as CUDA graphs: the port's counterpart of
+    ``jax.jit(step)`` (make_compiled_estimator_step builds it; called as
+    step(state, rig, img0, img1) -> (state, FrameOutput) with the eager
+    step's results).
+
+    Segment M (frames, track, motion) has a variant for each pnp_ready,
+    segment K (the keyframe stage) one for no keyframe, a keyframe before
+    the window solve engages, and a keyframe with the solve: JAX's three
+    lax.conds. The host mirrors what decides them — `mirror` holds the
+    next frame's (frame_id, kf_count), from which pnp_ready, full_now and
+    the RANSAC draws' seed follow — and reads only is_kf from the device:
+    segment M ends by copying it to pinned host memory and the step waits
+    for that copy (`host_reads` counts the waits, one a frame). The mirror
+    is read from the state once whenever the step is handed a state it did
+    not return last (a first call, a checkpoint's state): one more
+    blocking read then.
+
+    Inputs go into fixed buffers (utils.graphs.Slab): the state (skipped
+    when it is the one this step just returned), the rig (when it is not
+    the object of the last call), both images, and the gate's draws, made
+    on the host for the mirrored frame id and copied to the card outside
+    the graphs. Results come back in one of two output buffers used in
+    turn, so a state and output returned by call k stay unchanged through
+    call k + 1 and are overwritten by call k + 2: keep a copy of what must
+    live longer.
+
+    On CUDA a failed capture or replay raises utils.graphs.GraphError; the
+    step never falls back to eager execution. On the CPU (device="cpu") the
+    same segments and buffers run eagerly. `graphs` (utils.graphs.Graphs)
+    holds each variant's capture time."""
+
+    def __init__(self, cfg: EstimatorConfig, draws, device):
+        self.cfg, self.draws = cfg, draws
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("make_compiled_estimator_step: no CUDA device "
+                               "is available; pass device='cpu' to run the "
+                               "segments eagerly on the CPU")
+        self._sg = _build_segments(_build_stages(cfg))
+        self.graphs = graph_mod.Graphs(self.device, KERNEL_COUNTERS)
+        self.host_reads = 0
+        self.mirror = None
+        self.last_variants = None   # the segment variants of the last call
+        self._in = self._rig = self._img = self._mid = self._new = None
+        self._out, self._turn = None, 0
+        self._last, self._rig_src = None, None
+        self._gumbel = self._gumbel_host = None
+        pinned = self.device.type == "cuda"
+        self._is_kf_host = torch.zeros(1, dtype=torch.bool, pin_memory=pinned)
+        self._event = torch.cuda.Event() if pinned else None
+
+    def _motion(self, ready: bool):
+        gate = ready and self.cfg.pnp.ransac_hypotheses > 0
+
+        def fn():
+            seg = self._sg.motion(self._in.tree, self._rig.tree,
+                                  *self._img.tree, ready,
+                                  self._gumbel if gate else None)
+            if self._mid is None:
+                self._mid = graph_mod.Slab(seg, self.device)
+            self._mid.load(seg)
+            self._is_kf_host.copy_(self._mid.tree.mo.is_kf.reshape(1),
+                                   non_blocking=True)
+        return fn
+
+    def _opt(self, is_kf: bool, solve: bool):
+        def fn():
+            res = self._sg.opt(self._in.tree, self._rig.tree, self._mid.tree,
+                               is_kf, solve)
+            if self._new is None:
+                self._new = graph_mod.Slab(res, self.device)
+                if not self._in.same_prefix(self._new):
+                    raise ValueError("the step's new state does not have "
+                                     "the layout of its input state")
+            self._new.load(res)
+        return fn
+
+    def _stage_draws(self, frame_id: int):
+        """The gate's draws for `frame_id` into the fixed device buffer: made
+        on the host, copied on the stream from pinned memory."""
+        n = self._in.tree.lm.shape[0]
+        dtype = self._in.tree.T_W_B.dtype
+        g = self.draws(frame_id, (self.cfg.pnp.ransac_hypotheses, 2 * n),
+                       dtype, torch.device("cpu"))
+        if self._gumbel is None:
+            self._gumbel = torch.empty(g.shape, dtype=dtype,
+                                       device=self.device)
+            self._gumbel_host = torch.empty(
+                g.shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+        self._gumbel_host.copy_(g)
+        self._gumbel.copy_(self._gumbel_host, non_blocking=True)
+
+    def __call__(self, state: EstimatorState, rig: CameraRig, img0, img1):
+        cfg, dev = self.cfg, self.device
+        if self._in is None:
+            self._in = graph_mod.Slab(state, dev)
+            self._rig = graph_mod.Slab(rig, dev)
+            self._img = graph_mod.Slab((img0, img1), dev)
+        if state is not self._last:
+            self._in.load(state)
+            kf, fid = torch.stack([state.kf_count.to(torch.int64),
+                                   state.frame_id.to(torch.int64)]).tolist()
+            self.mirror = (fid, kf)
+        if rig is not self._rig_src:
+            self._rig.load(rig)
+            self._rig_src = rig
+        self._img.load((img0, img1))
+        fid, kf = self.mirror
+        ready = bool(pnp_ready(cfg, kf))
+        if ready and cfg.pnp.ransac_hypotheses > 0:
+            self._stage_draws(fid)
+        self.graphs.run(("motion", ready), self._motion(ready))
+        if self._event is not None:
+            self._event.record()
+            self._event.synchronize()
+        self.host_reads += 1
+        is_kf = bool(self._is_kf_host[0])
+        solve = is_kf and bool(full_now(cfg, kf))
+        self.graphs.run(("opt", is_kf, solve), self._opt(is_kf, solve))
+        self.last_variants = (("motion", ready), ("opt", is_kf, solve))
+        if self._out is None:
+            self._out = [graph_mod.Slab(self._new.template, dev)
+                         for _ in range(2)]
+        self._in.buf.copy_(self._new.buf[:self._in.nbytes])
+        self._turn ^= 1
+        out = self._out[self._turn]
+        out.buf.copy_(self._new.buf)
+        self.mirror = (fid + 1, min(kf + 1, cfg.window_size) if is_kf else kf)
+        new_state, frame_out = out.fresh_tree()
+        self._last = new_state
+        return new_state, frame_out
+
+
+def make_compiled_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
+                                 device="cuda", probe=None):
+    """The per-frame step (state, rig, img0, img1) -> (state, FrameOutput)
+    as CUDA graphs of its segments (CompiledStep): the counterpart of the
+    JAX package's ``jax.jit(step)``, with make_estimator_step's results.
+    Pins full fp32 and validates the config. `draws` as in
+    make_estimator_step (called with the CPU as its device). `device`:
+    "cuda" (the default; raises without a card) or "cpu", where the same
+    segments run eagerly. `probe` is refused (ValueError): its counts are
+    Python dict updates, which a replay would not run; use
+    make_estimator_step for it."""
+    if probe is not None:
+        raise ValueError("probe counts cannot be replayed from a CUDA graph; "
+                         "use make_estimator_step(cfg, probe=...)")
+    pin_fp32()
+    return CompiledStep(cfg, draws, device)

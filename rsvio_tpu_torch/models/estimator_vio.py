@@ -360,14 +360,17 @@ def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
         T_pred, v_pred = _imu_predict(state.T_W_B, state.vel, frame_pre)
         T_pred = torch.where(have_samples, T_pred, state.T_W_B)
         v_pred = torch.where(have_samples, v_pred, state.vel)
+        ready, gumbel = est_mod.read_motion_branch(
+            b, state.kf_count, state.frame_id, draws, state.lm.shape[0],
+            T_pred.dtype, T_pred.device)
         mo = est_mod.run_motion(
             b, rig, table, obs_cur, obs_cur_mask, state.lm, state.lm_fid,
             state.lm_birth, state.kf_count, state.last_kf_T_W_B,
-            state.frame_id, T_pred=T_pred, T_gate_seed=T_pred,
-            T_prior=T_pred, T_fallback=T_pred,
+            T_pred=T_pred, T_gate_seed=T_pred, T_prior=T_pred,
+            T_fallback=T_pred, ready=ready, gumbel=gumbel,
             # The permanent birth weight (no age ramp in VIO).
             obs_w_slots=(table.w if b.use_obs_weights else None),
-            cv_bound_check=False, health_prev=state.health_ema, draws=draws)
+            cv_bound_check=False, health_prev=state.health_ema)
         return VIOFrontOut(pyr0=pyr0, pyr1=pyr1, table=table, fstats=fstats,
                            obs_cur=obs_cur, obs_cur_mask=obs_cur_mask,
                            buf_gyro=buf_gyro, buf_accel=buf_accel,

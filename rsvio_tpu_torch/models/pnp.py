@@ -178,6 +178,34 @@ def solve_pnp(T_W_B_init, T_C_B, landmarks, obs, mask,
                      final_cost=cost, iterations=it, metrics=metrics)
 
 
+def integral_vote_floor(cfg: PnPConfig):
+    """round(ransac_age_floor * ransac_age_cap) when that product is an
+    integer (the defaults: 1), else None."""
+    lo = cfg.ransac_age_floor * cfg.ransac_age_cap
+    return int(round(lo)) if abs(lo - round(lo)) <= 1e-9 else None
+
+
+def ransac_votes(inliers, age, cfg: PnPConfig, vote_w):
+    """Each hypothesis' age-weighted vote, (K,), from its inliers (K,2,L).
+
+    Where the weights clip(age / cap, floor, 1) are cap-ths of integers
+    (floor * cap integral), the vote is the exact integer sum of
+    clip(age, floor * cap, cap) = cap * weight: it ranks the hypotheses as
+    the weighted vote does, and an exact tie stays a tie, so argmax gives
+    it to the lowest index on every device. (A floating-point sum breaks
+    such a tie by its rounding order, which differs between XLA's CPU
+    reduction, PyTorch's and CUDA's; on a 0.1 grid ties are common.)
+    Without ages every weight is 1 and the count is exact too. Otherwise
+    the vote is the floating-point sum of vote_w, as the JAX package's."""
+    lo = integral_vote_floor(cfg)
+    if age is None or cfg.ransac_age_cap <= 0:
+        return inliers.to(torch.int64).sum(dim=(1, 2))
+    if lo is not None:
+        w = torch.clamp(age.to(torch.int64), lo, cfg.ransac_age_cap)
+        return (inliers.to(torch.int64) * w[None, None, :]).sum(dim=(1, 2))
+    return (inliers.to(vote_w.dtype) * vote_w[None, None, :]).sum(dim=(1, 2))
+
+
 def ransac_pnp_gate(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel,
                     cfg: PnPConfig, age=None):
     """Batched RANSAC consensus gate for pose-only tracking.
@@ -199,12 +227,30 @@ def ransac_pnp_gate(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel,
     winning consensus set (a subset of mask); below the consensus floor the
     gate disengages and mask comes back unchanged.
     """
+    inliers, vote_w = ransac_hypotheses(T_W_B_init, T_C_B, landmarks, obs,
+                                        mask, gumbel, cfg, age)
+    # Winner by age-weighted vote; the consensus floor is an unweighted
+    # count. argmax takes the first maximum, as jnp.argmax.
+    best = torch.argmax(ransac_votes(inliers, age, cfg, vote_w))
+    # index_select: indexing with a 0-d tensor reads it on the host.
+    best_inl = inliers.index_select(0, best.reshape(1))[0]
+    best_count = best_inl.to(torch.int32).sum(dtype=torch.int32)
+    n_valid = mask.sum()
+    ok = ((best_count >= cfg.ransac_min_inliers)
+          & (n_valid >= cfg.ransac_min_inliers))
+    return torch.where(ok, best_inl, mask), ok, best_count
+
+
+def ransac_hypotheses(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel,
+                      cfg: PnPConfig, age=None):
+    """The gate's K hypotheses (ransac_pnp_gate's arguments): every
+    hypothesis' inlier set (K,2,L) and the per-landmark vote weights
+    vote_w (L,)."""
     S = cfg.ransac_sample
     L = landmarks.shape[0]
     dtype, dev = T_W_B_init.dtype, T_W_B_init.device
     T_B_W0 = lie.se3_inverse(T_W_B_init)
     flat_mask = mask.reshape(-1)                            # (2L,)
-    n_valid = flat_mask.sum()
 
     if age is not None and cfg.ransac_age_cap > 0:
         vote_w = torch.clamp(age.to(dtype) / cfg.ransac_age_cap,
@@ -253,13 +299,4 @@ def ransac_pnp_gate(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel,
     finite = torch.isfinite(T).flatten(1).all(dim=1)        # (K,)
     inliers = (mask[None] & (r2 < cfg.ransac_threshold ** 2)
                & finite[:, None, None])                     # (K,2,L)
-
-    # Winner by age-weighted vote; the consensus floor is an unweighted
-    # count. argmax takes the first maximum, as jnp.argmax.
-    wcounts = (inliers.to(dtype) * vote_w[None, None, :]).sum(dim=(1, 2))
-    best = torch.argmax(wcounts)
-    best_inl = inliers[best]
-    best_count = best_inl.to(torch.int32).sum(dtype=torch.int32)
-    ok = ((best_count >= cfg.ransac_min_inliers)
-          & (n_valid >= cfg.ransac_min_inliers))
-    return torch.where(ok, best_inl, mask), ok, best_count
+    return inliers, vote_w

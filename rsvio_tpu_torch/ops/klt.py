@@ -132,8 +132,8 @@ def _track_points_kernel(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive,
         theta = torch.zeros(n, dtype=pos_src.dtype, device=pos_src.device)
 
     def level(lvl, pos, theta):
-        scale = torch.tensor((1.0 / cfg.pyramid_ratio) ** lvl,
-                             dtype=pos_src.dtype, device=pos_src.device)
+        # A Python float: a tensor made from it on the card is a blocking copy.
+        scale = (1.0 / cfg.pyramid_ratio) ** lvl
         pos_lvl, theta_lvl, lvl_ok = level_fn(
             pyr_src[lvl][None].contiguous(), pyr_dst[lvl][None].contiguous(),
             (pos_src / scale).contiguous(), (pos / scale).contiguous(),
@@ -284,8 +284,7 @@ def _track_points_gather(pyr_src, pyr_dst, pos_src, pos_dst0, A0,
     n_dof = 3 if cfg.track_rotation else 2
 
     def level(lvl, pos, A):
-        scale = torch.tensor((1.0 / cfg.pyramid_ratio) ** lvl,
-                             dtype=pos_src.dtype, device=pos_src.device)
+        scale = (1.0 / cfg.pyramid_ratio) ** lvl     # a Python float, no copy
         patch = build_patch(pyr_src[lvl], pos_src / scale, cfg.residual_mode,
                             cfg.lm_lambda, n_dof, cfg.interpolation)
         M0 = torch.eye(3, dtype=pos_src.dtype,

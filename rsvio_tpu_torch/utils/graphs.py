@@ -1,0 +1,190 @@
+"""CUDA graphs of a step cut into segments, over buffers at fixed addresses.
+
+JAX compiles a whole per-frame step into one device program whose
+data-dependent branches are ``lax.cond``s. The port's counterpart cuts the
+step at its branch points into segments, one variant per branch taken, and
+runs each variant as a ``torch.cuda.CUDAGraph``:
+
+- ``Slab``: one device buffer that holds every tensor of a pytree (nested
+  tuples, NamedTuples, dicts, tensors, ``None``) at a fixed address, as
+  views. A segment reads its inputs from slabs and copies its results into
+  a slab, so a replayed graph finds its inputs and leaves its outputs where
+  the capture saw them. Two slabs of one layout copy into each other with
+  one ``copy_``.
+- ``Graphs``: the variants by key. A variant's first use runs it eagerly on
+  the capture stream under ``torch.cuda.set_sync_debug_mode("error")`` (so a
+  hidden host sync raises; this run is also the warm-up that builds kernels
+  and initializes the libraries' handles and workspaces) and then captures
+  it; later uses replay the graph. Each variant gets its own memory pool
+  (the variants replay in a data-dependent order, so they may not share
+  one). A capture or replay that fails raises ``GraphError``: nothing falls
+  back to running eagerly.
+
+Kernel launch counters kept in Python (the ``launches`` attributes of the
+kernel wrappers) do not run on a replay. A capture records how far it
+moved each counter, puts the counters back (the capture launched nothing)
+and every replay advances them by that amount.
+
+On the CPU, which a caller asks for explicitly, a variant runs eagerly on
+every use over the same slabs: the same data path without capture.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+ALIGN = 256   # bytes: every view of a slab starts on such a boundary
+
+
+class GraphError(RuntimeError):
+    """A CUDA graph failed to capture or replay."""
+
+
+def leaves(tree):
+    """The tensors of a pytree, depth first (dicts in their key order)."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in leaves(v)]
+    raise TypeError(f"not a tensor pytree leaf: {type(tree).__name__}")
+
+
+def rebuild(tree, it):
+    """`tree` with its tensors replaced, in order, by the iterator's."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: rebuild(v, it) for k, v in tree.items()}
+    vals = [rebuild(v, it) for v in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+class Slab:
+    """The tensors of `template` (a pytree) as views of one uint8 buffer on
+    `device`: `tree` is the template's structure over the views. Holds no
+    values until loaded."""
+
+    def __init__(self, template, device):
+        self.template = template
+        self.specs, off = [], 0
+        for t in leaves(template):
+            self.specs.append((off, t.dtype, tuple(t.shape)))
+            off += -(-t.numel() * t.element_size() // ALIGN) * ALIGN
+        self.nbytes = off
+        self.buf = torch.empty(off, dtype=torch.uint8, device=device)
+        self.views = [
+            self.buf[o:o + _numel(sh) * dt.itemsize].view(dt).view(sh)
+            for o, dt, sh in self.specs]
+        self.tree = rebuild(template, iter(self.views))
+
+    def fresh_tree(self):
+        """The views in a newly built pytree (a new object each call)."""
+        return rebuild(self.template, iter(self.views))
+
+    def load(self, tree):
+        """Copy the tensors of `tree` (the template's structure, shapes,
+        dtypes and device) into place; raises ValueError otherwise."""
+        ts = leaves(tree)
+        if len(ts) != len(self.views):
+            raise ValueError(f"{len(ts)} tensors, the slab holds "
+                             f"{len(self.views)}")
+        for i, (v, t) in enumerate(zip(self.views, ts)):
+            if t.shape != v.shape or t.dtype != v.dtype \
+                    or t.device != v.device:
+                raise ValueError(
+                    f"tensor {i}: {tuple(t.shape)} {t.dtype} on {t.device}, "
+                    f"the slab holds {tuple(v.shape)} {v.dtype} on "
+                    f"{v.device}")
+            v.copy_(t)
+
+    def same_prefix(self, other: "Slab") -> bool:
+        """Whether this slab's layout is the start of `other`'s, so that
+        ``self.buf.copy_(other.buf[:self.nbytes])`` copies every tensor."""
+        return other.specs[:len(self.specs)] == self.specs
+
+
+def _numel(shape):
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+class Graphs:
+    """The captured variants of a step's segments, by key, on `device`.
+
+    counters: (object, attribute) pairs of Python launch counters to carry
+    over replays (see the module docstring)."""
+
+    def __init__(self, device, counters=()):
+        self.device = torch.device(device)
+        self.counters = tuple(counters)
+        self.graphs = {}        # key -> (CUDAGraph, counter deltas)
+        self.capture_ms = {}    # key -> ms of the first run and the capture
+        self.replays = 0
+        self._stream = None
+
+    def _counts(self):
+        return [getattr(o, a) for o, a in self.counters]
+
+    def run(self, key, fn):
+        """Run variant `key` (`fn()`, which reads and writes slabs): replay
+        its graph, or on its first use run it eagerly and capture it."""
+        if self.device.type != "cuda":
+            fn()
+            return
+        entry = self.graphs.get(key)
+        if entry is None:
+            self._first_use(key, fn)
+            return
+        graph, delta = entry
+        try:
+            graph.replay()
+        except Exception as e:
+            raise GraphError(f"replay of {key!r} failed: {e}") from e
+        for (o, a), d in zip(self.counters, delta):
+            setattr(o, a, getattr(o, a) + d)
+        self.replays += 1
+
+    def _first_use(self, key, fn):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        side, cur = self._stream, torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
+        side.wait_stream(cur)
+        prev = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        cur.wait_stream(side)
+        before = self._counts()
+        graph = torch.cuda.CUDAGraph()
+        # The capture itself fails on any host sync; the debug mode is off
+        # for torch.cuda.graph's own synchronize and cache release.
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            # thread_local: another thread of the program (a prefetching
+            # reader that pins memory) may keep calling CUDA meanwhile.
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                fn()
+        except Exception as e:
+            raise GraphError(f"capture of {key!r} failed: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+            delta = [b - a for a, b in zip(before, self._counts())]
+            for (o, a), v in zip(self.counters, before):
+                setattr(o, a, v)
+        self.graphs[key] = (graph, delta)
+        self.capture_ms[key] = (time.perf_counter() - t0) * 1e3

@@ -355,6 +355,9 @@ def _default_device_calls():
             tconfig.make_estimator_config,
             lambda: tconfig.make_estimator_config(tconfig.Config(),
                                                   kind="vio")),
+        "make_compiled_estimator_step": (
+            test_.make_compiled_estimator_step,
+            lambda: test_.make_compiled_estimator_step(cfg)),
     }
 
 
@@ -362,7 +365,8 @@ def _default_device_calls():
     "init_state", "init_table", "empty_prior", "make_rig", "rig_from_numpy",
     "state_from_numpy", "pack_params", "init_mono_table",
     "make_estimator_config", "init_vio_state", "initialize_vio_state",
-    "vio_state_from_numpy", "make_estimator_config_vio"])
+    "vio_state_from_numpy", "make_estimator_config_vio",
+    "make_compiled_estimator_step"])
 def test_entry_points_default_to_cuda(name):
     """Entry points run on the card unless the caller asks for the CPU:
     their device default is CUDA, and without a card the default raises

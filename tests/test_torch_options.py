@@ -23,6 +23,8 @@ Tolerances:
     carries a value other than 1.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,14 +71,20 @@ def _gate_problem(case, seed=31):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
-@pytest.mark.parametrize("case", ["clean", "occluder", "few_valid", "no_age"])
+@pytest.mark.parametrize("case", ["clean", "occluder", "few_valid", "no_age",
+                                  "float_vote"])
 def test_ransac_pnp_gate_matches_jax(case, dtype):
+    """float_vote: an age floor whose weights are not tenths (0.15 x 10
+    is not an integer), so the port sums the vote in floating point as
+    JAX does instead of exactly in integers."""
     np_dt = np.float32 if dtype == "f32" else np.float64
     T_init, T_C_B, p_W, obs, mask, age = _gate_problem(case)
     arrays = [a.astype(np_dt) for a in (T_init, T_C_B, p_W, obs)] + [mask]
     K = 16
-    cfg_j = jpnp.PnPConfig(ransac_hypotheses=K)
-    cfg_t = tpnp.PnPConfig(ransac_hypotheses=K)
+    kw = dict(ransac_age_floor=0.15) if case == "float_vote" else {}
+    cfg_j = jpnp.PnPConfig(ransac_hypotheses=K, **kw)
+    cfg_t = tpnp.PnPConfig(ransac_hypotheses=K, **kw)
+    assert (tpnp.integral_vote_floor(cfg_t) is None) == bool(kw)
     age_j = None if case == "no_age" else jnp.asarray(age)
     with jax.enable_x64(dtype == "f64"):
         key = jax.random.PRNGKey(7)
@@ -91,12 +99,69 @@ def test_ransac_pnp_gate_matches_jax(case, dtype):
     assert bool(ok_t) == bool(ok_j)
     assert int(n_t) == int(n_j) and n_t.dtype == torch.int32
     want_ok = {"clean": True, "occluder": True, "few_valid": False,
-               "no_age": True}[case]
+               "no_age": True, "float_vote": True}[case]
     assert bool(ok_t) == want_ok
     if case == "occluder":
         mover = np.arange(48) % 10 < 3
         assert not inl_t.numpy()[:, mover].any()
         assert inl_t.numpy()[:, ~mover].sum() >= 0.9 * mask[:, ~mover].sum()
+
+
+# The port's gate inputs at frame 19 of occlusion_6dof x vo_adapt (320x204,
+# float64, JAX's draws): made by tools/compare_vo_trajectories.py --matrix
+# --width 320 --frames 20 --precision f64 --scenes occlusion_6dof --configs
+# vo_adapt --dump-gate 19 tests/data/c4_gate_frame19.npz (ROADMAP C4).
+C4_GATE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "c4_gate_frame19.npz")
+
+
+def c4_gate_inputs():
+    """(T_W_B_init, T_C_B, landmarks, obs, mask, gumbel) as numpy, the ages
+    and the port's PnPConfig of the C4 frame."""
+    d = np.load(C4_GATE)
+    arrays = [d[k] for k in ("T_W_B_init", "T_C_B", "landmarks", "obs",
+                             "mask", "gumbel")]
+    cfg = tpnp.PnPConfig(**{f: type(v)(d[f]) for f, v in
+                            tpnp.PnPConfig()._asdict().items()})
+    return arrays, d["age"], cfg
+
+
+def exact_votes(inliers, age, cfg):
+    """Each hypothesis' vote in integers: clip(age, floor * cap, cap)."""
+    w = np.clip(age.astype(np.int64),
+                int(round(cfg.ransac_age_floor * cfg.ransac_age_cap)),
+                cfg.ransac_age_cap)
+    return (inliers.astype(np.int64) * w[None, None, :]).sum(axis=(1, 2))
+
+
+def test_ransac_exact_vote_tie_goes_to_lowest_index():
+    """C4 (ROADMAP): on the frame-19 inputs two hypotheses' age-weighted
+    votes tie exactly. The port's integer vote gives the tie to the lower
+    index; JAX's float64 sum of the same weights rounds the two votes
+    apart and takes the other one (its 413 inliers against 409)."""
+    arrays, age, cfg = c4_gate_inputs()
+    args = [torch.from_numpy(a) for a in arrays]
+    inl = tpnp.ransac_hypotheses(*args, cfg,
+                                 age=torch.from_numpy(age))[0].numpy()
+    votes = exact_votes(inl, age, cfg)
+    top = np.flatnonzero(votes == votes.max())
+    assert len(top) >= 2 and votes.max() == 3586        # 358.6 in tenths
+    inl_t, ok_t, n_t = tpnp.ransac_pnp_gate(*args, cfg,
+                                            age=torch.from_numpy(age))
+    assert bool(ok_t)
+    np.testing.assert_array_equal(inl_t.numpy(), inl[top[0]])
+    assert int(n_t) == int(inl[top[0]].sum()) == 409
+    with jax.enable_x64(True):
+        key = jax.random.fold_in(jax.random.PRNGKey(0x5A11AC), 19)
+        np.testing.assert_array_equal(np.asarray(jax.random.gumbel(
+            key, arrays[5].shape, dtype=jnp.float64)), arrays[5])
+        inl_j, _, n_j = jpnp.ransac_pnp_gate(
+            *(jnp.asarray(a) for a in arrays[:5]), key,
+            jpnp.PnPConfig(**cfg._asdict()), age=jnp.asarray(age))
+        inl_j = np.asarray(inl_j)
+    assert int(n_j) == 413
+    picks = [k for k in top if np.array_equal(inl[k], inl_j)]
+    assert picks and picks[0] > top[0]
 
 
 # --------------------------------------------------------------------------

@@ -34,7 +34,9 @@ state, frames and IMU cast to float64 — its own harness builds them in
 float32 — as a ``precision: f64`` config does). ``--save PATH`` writes each
 row's positions to a JSON file; ``--against PATH`` reads such a file of the
 other precision and prints, per row, each package's gap to its own run
-there. ``--trace`` records both steps' per-frame outputs and prints, per
+there. ``--dump-gate FRAME PATH`` writes the port's RANSAC gate inputs of
+that frame to an .npz file (tests/data/ holds one). ``--trace`` records both
+steps' per-frame outputs and prints, per
 row, the first frame where a count, a flag or the pose (by > 1e-9 m)
 differs; where the RANSAC gate ran on that frame, it also runs both
 packages' gates on the port's inputs of that frame and prints each one's
@@ -103,6 +105,10 @@ def main(argv=None):
                     help="--matrix: a --save file of the other precision")
     ap.add_argument("--trace", action="store_true",
                     help="--matrix: the first frame where the steps part")
+    ap.add_argument("--dump-gate", nargs=2, metavar=("FRAME", "PATH"),
+                    default=None,
+                    help="--matrix: write the port's RANSAC gate inputs of "
+                         "frame FRAME (last row run) to PATH (.npz)")
     args = ap.parse_args(argv)
     solver = dict(kv.split("=", 1) for kv in args.solver)
     solver = {k: _value(v) for k, v in solver.items()}
@@ -121,7 +127,9 @@ def main(argv=None):
             _jax_harness_f64()
         rows = compare_matrix(args.width, args.frames, args.scenes,
                               args.configs, args.route, args.geometry,
-                              args.precision, args.against, args.trace)
+                              args.precision, args.against,
+                              args.trace or args.dump_gate is not None,
+                              args.dump_gate)
         if args.save:
             with open(args.save, "w") as f:
                 json.dump({"precision": args.precision, "rows": rows}, f)
@@ -300,6 +308,20 @@ class _Trace:
             return gate(*a, **k)
         tpnp.ransac_pnp_gate = recording_gate
 
+    def dump(self, frame, path):
+        """Write the port's gate inputs of `frame` to `path` (.npz): the
+        gate's arrays under their parameter names and the PnPConfig's
+        fields under theirs."""
+        import numpy as np
+
+        args, kw = self.gate_in[frame]
+        names = ("T_W_B_init", "T_C_B", "landmarks", "obs", "mask",
+                 "gumbel")
+        arrays = {n: a.numpy() for n, a in zip(names, args[:6])}
+        arrays["age"] = kw["age"].numpy()
+        np.savez_compressed(path, **arrays, **args[6]._asdict())
+        print(f"  gate inputs of frame {frame} -> {path}", flush=True)
+
     def report(self):
         """Print the first frame where the two steps part (and empty the
         record for the next row)."""
@@ -345,7 +367,7 @@ class _Trace:
 
 def compare_matrix(width, frames, scenes=None, configs=None,
                    route="gather", geometry="matrix", precision="f32",
-                   against=None, trace=False):
+                   against=None, trace=False, dump_gate=None):
     """The accuracy matrix's rows through both harnesses on the same JAX
     frames; prints one line a row and returns the rows (dicts with both
     packages' ATE, drift and positions)."""
@@ -445,6 +467,8 @@ def compare_matrix(width, frames, scenes=None, configs=None,
                     np.abs(np.asarray(o[k]) - np.asarray(row[k])).max(),
                     ".2e") for k in ("jax", "port"))
             print(line, flush=True)
+            if dump_gate:
+                tracer.dump(int(dump_gate[0]), dump_gate[1])
             if tracer:
                 tracer.report()
     return rows
