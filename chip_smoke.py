@@ -210,27 +210,53 @@ them. Phases, each of which raises on failure:
                printed, not held on the occlusion runs (the transit's
                outcome swings with the IMU-noise seed and the profile in
                the JAX package itself, tools/accuracy_matrix.py:55-72).
- 14. graph   — runs right after phase 9 (options), whose eager runs it
-               repeats: models.estimator.make_compiled_estimator_step (the
-               step as CUDA graphs of its segments, the counterpart of
-               jax.jit(step)) on the frames, rig and config of main (6
-               warm-up frames, which capture the variants met by then, 60
-               timed, 20 blocked), rotation, each shipped config and the
-               options phase's marg run (6 warm-up, 30 timed, 20 blocked
-               each). Every call after the first runs under
-               torch.cuda.set_sync_debug_mode("error"). Each run is held to
-               the floors of its eager run, its poses within 1e-5 m of the
-               eager step's on the same frames, exactly 2 K1 (K1-rot)
-               launches a frame and one blocking read a frame (the step's
-               wait for is_kf); prints frames/s and the blocked median
-               beside the eager run's, the graphs made, each variant's
-               ms of first run and capture, and the device time of a
-               replay alone of segment M with PnP and of segment K with
-               and without a keyframe (CUDA events behind a GPU spin,
-               median of 25). The cli phase's run_euroc,
-               run_tum and run_4seasons runs go through the compiled step
-               too (the CLI takes it on CUDA), euroc under its check against
-               the eager step driven directly.
+ 14. graph   — runs right after phase 10 (vio), repeating the eager
+               runs of phases 5-10: models.estimator.
+               make_compiled_estimator_step (the step as CUDA graphs of its
+               segments, the counterpart of jax.jit(step)) on the frames,
+               rig and config of main (6 warm-up frames, which capture the
+               variants met by then, 60 timed, 20 blocked), rotation, each
+               shipped config and the options phase's marg run (6 warm-up,
+               30 timed, 20 blocked each); models.estimator_vio.
+               make_compiled_vio_estimator_step on the vio phase's three
+               runs (their frames, IMU buffers as host arrays and
+               bootstrap; 6 warm-up, 30 timed, 20 blocked); and
+               models.mono_tracker.make_compiled_mono_step on the mono
+               phase's 40 frames (each blocked). Every VO / VIO call after
+               the first and every mono call runs under
+               torch.cuda.set_sync_debug_mode("error"). Each VO / VIO run
+               is held to the floors of its eager run (VIO: the velocity
+               too), its positions within 1e-5 m of the eager step's on
+               the same frames, exactly 2 K1 (K1-rot) launches a frame and
+               one blocking read a frame (the step's wait for is_kf); the
+               mono run to the eager run's tracked / alive counts every
+               frame, its last table (alive and ids equal, positions within
+               1e-3 px), 39 K1 launches and no blocking read. Each prints
+               frames/s (mono: the blocked median ms) and the blocked
+               median beside the eager run's (VIO: also keyframe frames'
+               and other frames' apart), the graphs made, each variant's
+               ms of first run and capture, the captures inside the timed
+               frames, VIO: the last 10 frames timed in place segment by
+               segment (CUDA events around each segment's run: the device
+               ms of F, P and K, the device's idle gaps between them and
+               before / after them, the frame's wall ms; graph_split),
+               each variant's runs, the growth of
+               torch.cuda.memory_reserved over the run, each end measured
+               after torch.cuda.empty_cache (the graphs' pools and
+               buffers), and the device time of a replay alone of the
+               frame-typical variants (CUDA events behind a GPU spin,
+               median of 25; VO: segment M with PnP, K with and without a
+               keyframe; VIO: the most used segment F and P (the
+               keyframe stage's prologue, its interval loop), K with the
+               solve and K without a keyframe; mono: the frame after the first,
+               its previous pyramid copied back in before each replay);
+               for main and each VIO run a one-replay torch.profiler count
+               of device events (VIO: F, P and K with the solve). The cli
+               phase's run_euroc (also --vio), run_tum, run_4seasons and
+               run_tartanair runs go through the compiled steps too (the
+               CLI takes them on CUDA), euroc and --vio under their checks
+               against the eager step driven directly, tartanair against
+               the eager mono step's counts on the same decoded frames.
 
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
@@ -677,6 +703,51 @@ def fusion_ab(dev):
             "launches_fusion": c["klt_bidir"]}, c
 
 
+class GraphWatch:
+    """A compiled step's bookkeeping over a run (none for an eager step,
+    `step` None): every call after the first under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync other than the
+    step's one wait a frame raises; its blocking reads a frame from start()
+    on; the variants captured between start() and stop() (the timed
+    frames)."""
+
+    def __init__(self, step):
+        self.step = step
+        self.reads0, self.caps = 0, [set(), set()]
+
+    def start(self):
+        if self.step is not None:
+            self.reads0 = self.step.host_reads
+            self.caps[0] = set(self.step.graphs.capture_ms)
+
+    def stop(self):
+        if self.step is not None:
+            self.caps[1] = set(self.step.graphs.capture_ms)
+
+    def call(self, k, step, *args):
+        import torch
+        if self.step is None or k == 0:
+            return step(*args)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def fields(self, frames):
+        """The summary's graph fields after `frames` calls (WARMUP of them
+        before start())."""
+        g = self.step.graphs
+        return dict(
+            host_reads_per_frame=(self.step.host_reads - self.reads0)
+            / (frames - WARMUP),
+            replays=g.replays,
+            capture_ms={variant_name(k): v for k, v in g.capture_ms.items()},
+            captures_in_timed={variant_name(k): g.capture_ms[k]
+                               for k in self.caps[1] - self.caps[0]},
+            uses={variant_name(k): v for k, v in g.uses.items()})
+
+
 def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
            compiled=False):
     """Warm-up, timed and blocked quality frames of one estimator config;
@@ -690,28 +761,26 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
     torch.cuda.set_sync_debug_mode("error"), so a host sync other than the
     step's one wait a frame raises; the summary adds the step's waits a
     frame after the first call, its replays and each variant's ms of first
-    run and capture, and the step comes back as a fourth result."""
+    run and capture, the captures inside the timed frames and the runs of
+    each variant (GraphWatch.fields), and the step comes back as a fourth
+    result."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.data import bench_scene
     from rsvio_tpu_torch.models import estimator as est
 
     if compiled:
+        pool0 = pool_bytes()
         step = est.make_compiled_estimator_step(cfg, device=dev)
     else:
         step = est.make_estimator_step(cfg, probe=probe)
     split = est.make_estimator_split_step(cfg, probe=probe)
     state = est.init_state(cfg, device=dev)
     rec, poses = [], []   # device tensors, read after the run
+    watch = GraphWatch(step if compiled else None)
 
     def call(frame):
-        if not compiled or not rec:
-            return step(state, rig, *frame)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return step(state, rig, *frame)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        return watch.call(len(rec), step, state, rig, *frame)
 
     def record(kf_before, out):
         rec.append(torch.stack([
@@ -728,8 +797,8 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
         state, out = call(frames[k])
         record(kf_before, out)
         k += 1
-    reads0 = step.host_reads if compiled else 0
     torch.cuda.synchronize()
+    watch.start()
     t0 = time.perf_counter()
     for _ in range(timed):
         kf_before = state.kf_count
@@ -738,6 +807,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
         k += 1
     torch.cuda.synchronize()
     fps = timed / (time.perf_counter() - t0)
+    watch.stop()
 
     def drift_at(frame, T_W_B):
         t = T_W_B[:3, 3].double().cpu()
@@ -789,11 +859,7 @@ def run_vo(cfg, frames, rig, dev, timed, split_frames=0, probe=None,
         summary["stage_median_ms"] = {n: statistics.median(v)
                                       for n, v in stage_ms.items()}
     if compiled:
-        summary.update(
-            host_reads_per_frame=(step.host_reads - reads0) / (k - WARMUP),
-            replays=step.graphs.replays,
-            capture_ms={variant_name(key): v
-                        for key, v in step.graphs.capture_ms.items()})
+        summary.update(watch.fields(k), pool_bytes=pool_bytes() - pool0)
         return summary, c, per_frame, step
     return summary, c, per_frame
 
@@ -861,6 +927,8 @@ GRAPH_POSE_TOL = 1e-5   # m: the compiled step's poses vs the eager step's
 # The variants timed alone: M with PnP, K with the solve, K without a
 # keyframe (utils.graphs keys of CompiledStep).
 GRAPH_TIMED = (("motion", True), ("opt", True, True), ("opt", False, False))
+# The vio phase's runs the graph phase replays through the compiled VIO step.
+GRAPH_VIO_RUNS = ("euroc_vio+vio", "depth_6dof+vio", "depth_6dof+vio+marg")
 
 
 def graph_phase(dev):
@@ -883,7 +951,8 @@ def graph_phase(dev):
         line = {k: s[k] for k in (
             "frames_per_s", "blocked_median_ms", "tracked_mean",
             "bidir_kill_rate", "drift_rel", "drift_rel_last_kf",
-            "host_reads_per_frame", "replays", "capture_ms")}
+            "host_reads_per_frame", "replays", "capture_ms",
+            "captures_in_timed", "pool_bytes")}
         # Each frame-typical variant's replay alone (the graphs read and
         # write only the step's fixed buffers, so replays repeat the last
         # frame's work), behind a GPU spin: device time only.
@@ -923,7 +992,153 @@ def graph_phase(dev):
         check_floors(f"graph[{name}]", s, drift_key)
         for k in total:
             total[k] += c[k]
+    for name in GRAPH_VIO_RUNS:
+        c = graph_vio(name, dev)
+        for k in total:
+            total[k] += c[k]
+    c = graph_mono(dev)
+    for k in total:
+        total[k] += c[k]
     return total
+
+
+def typical_variants(graphs):
+    """The most used variant of each kind of a compiled VIO step: segment F
+    and segment P at their usual loop bounds, K with the window solve and K
+    without a keyframe."""
+    kinds = {("kf", True, True): "solve", ("kf", False): "none"}
+    best = {}
+    for key, n in graphs.uses.items():
+        kind = {"front": "front", "kf_pre": "pre"}.get(key[0], kinds.get(key))
+        if kind and n > graphs.uses.get(best.get(kind), 0):
+            best[kind] = key
+    return best
+
+
+def pool_bytes():
+    """torch.cuda.memory_reserved after releasing the allocator's unused
+    cached blocks: the memory live tensors and CUDA graph pools hold."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+def graph_vio(name, dev):
+    """The compiled VIO step on the vio phase's eager run `name` (its
+    frames, IMU buffers and bootstrap; module docstring, phase 14)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    vcfg, rig, frames, traj, se, re_ = EAGER[name]
+    s, c, r, step = run_vio(vcfg, rig, frames, traj, dev, compiled=True)
+    n = s["frames_all"]
+    gap = float(np.abs(r[:, :3] - re_[:n, :3]).max())
+    line = {k: s[k] for k in (
+        "frames_per_s", "blocked_median_ms", "kf_blocked_median_ms",
+        "non_kf_blocked_median_ms", "tracked_mean", "bidir_kill_rate",
+        "drift_rel", "vel_err", "host_reads_per_frame", "replays",
+        "capture_ms", "captures_in_timed", "pool_bytes", "uses", "split")}
+    # The frame-typical variants' replays alone, behind a GPU spin (they
+    # read the step's fixed buffers, so each repeats the last frame's work).
+    typ = typical_variants(step.graphs)
+    d = {kind: cuda_median_ms(lambda key=key: step.graphs.run(key, None),
+                              spin=True) for kind, key in typ.items()}
+    line["device_ms"] = {variant_name(typ[kind]): v for kind, v in d.items()}
+    kf = float(r[WARMUP:WARMUP + VIO_TIMED, 7].mean())
+    if len(d) == 4:
+        kf_ms = d["front"] + d["pre"] + d["solve"]
+        est = kf * kf_ms + (1.0 - kf) * (d["front"] + d["none"])
+        line.update(kf_share_timed=kf, device_ms_per_frame=est,
+                    device_ms_kf_frame=kf_ms,
+                    device_share=est * s["frames_per_s"] / 1e3)
+    line["profile"] = graph_profile(
+        step, [typ[k] for k in ("front", "pre", "solve") if k in typ])
+    drift_key = None if name in VIO_DRIFT_UNHELD else "drift_rel"
+    line.update(
+        eager_frames_per_s=se["frames_per_s"],
+        eager_blocked_median_ms=se["blocked_median_ms"],
+        eager_kf_blocked_median_ms=se["kf_blocked_median_ms"],
+        speedup_fps=s["frames_per_s"] / se["frames_per_s"],
+        graphs=len(s["capture_ms"]), max_pose_gap_m=gap,
+        ba_fires=s["ba_fires_in_quality_pass"], pose_ok=s["pose_ok"],
+        launches=c, frames=n, drift_checked=drift_key,
+        seconds=time.perf_counter() - t0)
+    print(f"graph[{name}]: " + json.dumps(line), flush=True)
+    check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
+          f"graph[{name}]: launches {c} for {n} frames")
+    check(s["host_reads_per_frame"] == 1.0,
+          f"graph[{name}]: {s['host_reads_per_frame']} blocking reads a "
+          f"frame")
+    check(gap <= GRAPH_POSE_TOL,
+          f"graph[{name}]: poses {gap} m from the eager step's")
+    check_floors(f"graph[{name}]", s, drift_key)
+    check(s["vel_err"] <= VIO_VEL_TOL,
+          f"graph[{name}]: velocity error {s['vel_err']} m/s")
+    return c
+
+
+def graph_mono(dev):
+    """The compiled mono step on the mono phase's frames (module docstring,
+    phase 14): the counts of every frame and the last table against the
+    eager run's."""
+    import numpy as np
+    import torch
+    from rsvio_tpu_torch.models import mono_tracker as mt
+
+    t0 = time.perf_counter()
+    cfg, make_pyramid, imgs, se, tracked_e, alive_e, table_e = EAGER["mono"]
+    pool0 = pool_bytes()
+    step = mt.make_compiled_mono_step(cfg, make_pyramid, device=dev)
+    table = mt.init_mono_table(cfg.capacity, device=dev)
+    watch = GraphWatch(step)
+    stats_all, ms = [], []
+    reset_counts()
+    for k, img in enumerate(imgs):
+        if k == MONO_WARMUP:
+            watch.start()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            table, stats = step(table, img, first_frame=k == 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        stats_all.append(torch.stack([stats["tracked"], stats["alive"]]))
+    watch.stop()
+    c = counts()
+    tracked, alive = torch.stack(stats_all).cpu().numpy().T.tolist()
+    same = ((table.alive == table_e.alive) & (table.fid == table_e.fid)) \
+        .all()
+    gap = float((table.pos - table_e.pos)[table_e.alive].abs().max())
+    # The variant after the first frame replayed alone behind a GPU spin,
+    # its previous pyramid copied back in first (the replay overwrites it).
+    prev = make_pyramid(imgs[-2])
+    key = ("mono", False)
+
+    def replay():
+        step._pyr.load(prev)
+        step.graphs.run(key, None)
+    line = {"frames": len(imgs), "ms_per_frame_median": statistics.median(
+        ms[MONO_WARMUP:]), "eager_ms_per_frame_median":
+        se["ms_per_frame_median"], "host_reads": step.host_reads,
+        **{k: v for k, v in watch.fields(len(imgs)).items()
+           if k != "host_reads_per_frame"},
+        "pool_bytes": pool_bytes() - pool0,
+        "device_ms": {variant_name(key): cuda_median_ms(replay, spin=True)},
+        "counts_equal": (tracked, alive) == (tracked_e, alive_e),
+        "table_equal": bool(same), "max_pos_gap_px": gap, "launches": c,
+        "seconds": time.perf_counter() - t0}
+    print("graph[mono]: " + json.dumps(line), flush=True)
+    check(c == {"klt_bidir": len(imgs) - 1, "klt_bidir_rot": 0,
+                "klt_level": 0},
+          f"graph[mono]: launches {c} for {len(imgs)} frames")
+    check(step.host_reads == 0, f"graph[mono]: {step.host_reads} reads")
+    check(line["counts_equal"] and line["table_equal"],
+          "graph[mono]: counts or table differ from the eager run's")
+    check(gap <= POS_TOL, f"graph[mono]: positions {gap} px from eager")
+    return c
 
 
 def variant_name(key):
@@ -971,15 +1186,19 @@ def mono_phase(tex, dev, medians):
                       pyramid_ratio=m["ratio"]))
     imgs = [bench_scene.render(tex, bench_scene.STEP_M * k, shape=m["shape"],
                                fx=m["fx"]) for k in range(MONO_FRAMES)]
+
+    def make_pyramid(img):
+        return pyramid.build_pyramid_ratio(img, m["levels"], m["ratio"],
+                                           blur=True,
+                                           blur_sigma=m["blur_sigma"])
+
     table = mt.init_mono_table(cfg.capacity, device=dev)
     torch.cuda.synchronize()
     reset_counts()
     pyr_prev, tracked, alive, ms = None, [], [], []
     for k, img in enumerate(imgs):
         t0 = time.perf_counter()
-        pyr = pyramid.build_pyramid_ratio(img, m["levels"], m["ratio"],
-                                          blur=True,
-                                          blur_sigma=m["blur_sigma"])
+        pyr = make_pyramid(img)
         table, stats = mt.mono_tracker_step(
             table, pyr if pyr_prev is None else pyr_prev, pyr, cfg,
             first_frame=pyr_prev is None)
@@ -997,6 +1216,8 @@ def mono_phase(tex, dev, medians):
             [tracked[i] for i in q])), "kill_rate": kill,
          "alive_last": alive[-1], "launches": c}
     medians["mono"] = s["ms_per_frame_median"]
+    EAGER["mono"] = (cfg, make_pyramid, imgs, s, tracked, alive,
+                     mt.MonoTable(*(t.clone() for t in table)))
     print("mono: " + json.dumps(s), flush=True)
     check(c == {"klt_bidir": MONO_FRAMES - 1, "klt_bidir_rot": 0,
                 "klt_level": 0},
@@ -1355,14 +1576,19 @@ def vio_velocity(traj, t, h=1e-5):
     return (traj.pos_fn(t + h) - traj.pos_fn(t - h)) / (2 * h)
 
 
-def run_vio(vcfg, rig, frames, traj, dev, probe=None):
+def run_vio(vcfg, rig, frames, traj, dev, probe=None, compiled=False):
     """A VIO run: warm-up, timed and blocked quality frames on the frames'
     IMU buffers (built on the host beforehand as the CLI builds them, and
     uploaded by the step as one pinned copy a frame), from the
     gravity-aligned bootstrap on the stream's static head; then SPLIT
     frames with preintegrate and the window solve timed apart (a sync
     before and after each call). Returns (summary dict, launch counts of
-    every frame)."""
+    every frame, per-frame records (n, 8): position, n_tracked, n_alive,
+    ba_success, pose_ok, is_keyframe). `compiled`: the step as CUDA graphs
+    (make_compiled_vio_estimator_step; no probe, no split), every call
+    after the first under torch.cuda.set_sync_debug_mode("error"); the
+    summary adds GraphWatch.fields, the SPLIT frames' in-place segment
+    times (graph_split) and the step comes back as a fourth result."""
     import torch
     from rsvio_tpu_torch.models import estimator_vio as ev
 
@@ -1374,19 +1600,25 @@ def run_vio(vcfg, rig, frames, traj, dev, probe=None):
     check(ok, f"vio: the static head is not quasi-static: {info}")
     state = ev.initialize_vio_state(vcfg, imu["gyro"][:n_head],
                                     imu["accel"][:n_head], device=dev)
-    step = ev.make_vio_estimator_step(vcfg, probe=probe)
+    pool0 = pool_bytes()
+    if compiled:
+        step = ev.make_compiled_vio_estimator_step(vcfg, device=dev)
+    else:
+        step = ev.make_vio_estimator_step(vcfg, probe=probe)
     rec, step_ms = [], []
-    torch.cuda.synchronize()
+    watch = GraphWatch(step if compiled else None)
     reset_counts()
     for k in range(n_main):
         if k == WARMUP:
             torch.cuda.synchronize()
+            watch.start()
             t_timed = time.perf_counter()
         if k == WARMUP + VIO_TIMED:
             torch.cuda.synchronize()
             fps = VIO_TIMED / (time.perf_counter() - t_timed)
+            watch.stop()
         t1 = time.perf_counter()
-        state, out = step(state, rig, *frames[k], *bufs[k])
+        state, out = watch.call(k, step, state, rig, *frames[k], *bufs[k])
         if k >= WARMUP + VIO_TIMED:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t1) * 1e3)
@@ -1394,18 +1626,31 @@ def run_vio(vcfg, rig, frames, traj, dev, probe=None):
             out.n_tracked.double(), out.n_alive.double(),
             out.ba_success.double(), out.pose_ok.double(),
             out.is_keyframe.double()])]))
+    r = torch.stack(rec).cpu().numpy()
+    kf_q = r[WARMUP + VIO_TIMED:, 7] > 0.5
     s = {"frames_per_s": fps, "blocked_median_ms": statistics.median(step_ms),
-         **vio_metrics(torch.stack(rec).cpu().numpy(), traj,
-                       state.vel.double().cpu().numpy(),
+         "kf_blocked_median_ms": statistics.median(
+             [m for m, kf in zip(step_ms, kf_q) if kf] or [float("nan")]),
+         "non_kf_blocked_median_ms": statistics.median(
+             [m for m, kf in zip(step_ms, kf_q) if not kf]
+             or [float("nan")]),
+         **vio_metrics(r, traj, state.vel.double().cpu().numpy(),
                        vcfg.base.window_size),
          "bias_gyro": state.bg.double().cpu().numpy().tolist(),
          "bias_accel": state.ba.double().cpu().numpy().tolist(),
          "bias_truth": [VIO_BIAS_G, VIO_BIAS_A],
          "marg_prior_valid": bool(state.marg_prior.valid)}
+    if compiled:
+        c = counts()
+        s.update(watch.fields(n_main), pool_bytes=pool_bytes() - pool0,
+                 launches=c, frames_all=n_main)
+        s["split"] = graph_split(step, state, rig, frames[n_main:],
+                                 bufs[n_main:])
+        return s, c, r, step
     s["split"] = vio_split(step, state, rig, frames[n_main:], bufs[n_main:])
     c = counts()
     s.update(launches=c, frames_all=n)
-    return s, c
+    return s, c, r
 
 
 def vio_split(step, state, rig, frames, bufs):
@@ -1462,6 +1707,59 @@ def vio_split(step, state, rig, frames, bufs):
     return out
 
 
+def graph_split(step, state, rig, frames, bufs):
+    """Frames of a compiled VIO step timed in place, segment by segment:
+    CUDA events around each variant's run give the device ms of segments F,
+    P and K, the device's idle gaps between them (the host's wait for
+    is_kf and its next launch) and before F / after K (the host's own work
+    a frame: the step's prologue and epilogue); the frame's wall ms with a
+    sync before and after. Medians over keyframe frames and the others;
+    `captured` counts first uses among them (each an eager run and a
+    capture, not a replay)."""
+    import torch
+
+    run = step.graphs.run
+    marks = []
+
+    def timed_run(key, fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        new = key not in step.graphs.graphs
+        ev[0].record()
+        run(key, fn)
+        ev[1].record()
+        marks.append((key[0], ev, new))
+
+    rows = {"kf": [], "other": []}
+    captured = 0
+    step.graphs.run = timed_run
+    try:
+        for (a, b), buf in zip(frames, bufs):
+            marks.clear()
+            edge = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            edge[0].record()
+            state, out = step(state, rig, a, b, *buf)
+            edge[1].record()
+            torch.cuda.synchronize()
+            row = {"wall": (time.perf_counter() - t) * 1e3,
+                   "before": edge[0].elapsed_time(marks[0][1][0]),
+                   "after": marks[-1][1][1].elapsed_time(edge[1]),
+                   "gaps": sum(marks[i][1][1].elapsed_time(marks[i + 1][1][0])
+                               for i in range(len(marks) - 1))}
+            for kind, ev, new in marks:
+                row[{"front": "F", "kf_pre": "P", "kf": "K"}[kind]] = \
+                    ev[0].elapsed_time(ev[1])
+                captured += new
+            rows["kf" if bool(out.is_keyframe) else "other"].append(row)
+    finally:
+        del step.graphs.run
+    return {"captured": captured, **{
+        f"{kind}_{f}_ms": statistics.median(r[f] for r in rs)
+        for kind, rs in rows.items() if rs for f in rs[0]},
+        "keyframes": len(rows["kf"]), "others": len(rows["other"])}
+
+
 def vio_metrics(r, traj, v_est, window):
     """The floors' numbers of a VIO run from its per-frame records r (n, 8):
     position (3), n_tracked, n_alive, ba_success, pose_ok, is_keyframe.
@@ -1503,7 +1801,8 @@ def vio_phase(tex, dev):
         t0 = time.perf_counter()
         vcfg, rig, frames, traj, override = build()
         probe = {}
-        s, c = run_vio(vcfg, rig, frames, traj, dev, probe=probe)
+        s, c, r = run_vio(vcfg, rig, frames, traj, dev, probe=probe)
+        EAGER[name] = (vcfg, rig, frames, traj, s, r)
         s["probe"] = {k: int(v) for k, v in probe.items()}
         s["override"] = override
         s["seconds"] = time.perf_counter() - t0
@@ -1938,12 +2237,14 @@ def cli_layout(name, tex, dev, tmp, medians):
 def cli_tartanair(tex, dev, tmp, medians):
     """run_tartanair with config/tartanair.yaml on 640x480 left frames."""
     import numpy as np
+    import torch
     from rsvio_tpu_torch.cli import run_tartanair
     from rsvio_tpu_torch.data import bench_scene, writers
+    from rsvio_tpu_torch.models import mono_tracker as mt
 
     m = MONO
     cfg_path = os.path.join(ROOT, "config", "tartanair.yaml")
-    cfg, _ = run_tartanair.tracker_settings(cfg_path)
+    cfg, make_pyramid = run_tartanair.tracker_settings(cfg_path)
     check((cfg.klt.levels, cfg.klt.pyramid_ratio, cfg.nms_radius,
            cfg.min_score, cfg.klt.max_iterations, cfg.klt.lm_lambda)
           == (m["levels"], m["ratio"], m["radius"], m["min_score"],
@@ -1960,10 +2261,24 @@ def cli_tartanair(tex, dev, tmp, medians):
     q = range(MONO_WARMUP, MONO_FRAMES)
     kill = float(np.mean([1.0 - res.tracked[i] / max(res.alive[i - 1], 1)
                           for i in q]))
+    # The eager mono step driven directly on the same (lossless) frames:
+    # the CLI's step is the compiled one on the card.
+    table = mt.init_mono_table(cfg.capacity, device=dev)
+    direct, prev = ([], []), None
+    for k, u8 in enumerate(imgs):
+        pyr = make_pyramid(torch.from_numpy(u8).to(dev).float())
+        table, stats = mt.mono_tracker_step(table, pyr if k == 0 else prev,
+                                            pyr, cfg, first_frame=k == 0)
+        prev = pyr
+        direct[0].append(int(stats["tracked"]))
+        direct[1].append(int(stats["alive"]))
     line = {**ms_stats(res), "mono_phase_blocked_median_ms": medians.get(
         "mono"), "launches": c, "tracked_mean": float(np.mean(
-            [res.tracked[i] for i in q])), "kill_rate": kill}
+            [res.tracked[i] for i in q])), "kill_rate": kill,
+        "counts_equal_direct": (res.tracked, res.alive) == direct}
     print("cli[tartanair]: " + json.dumps(line), flush=True)
+    check(line["counts_equal_direct"],
+          "cli[tartanair]: counts differ from the eager step's")
     check(rc == 0 and line["frames"] == MONO_FRAMES,
           f"cli[tartanair]: rc {rc}, {line['frames']} frames")
     check(c == {"klt_bidir": MONO_FRAMES - 1, "klt_bidir_rot": 0,
@@ -2705,8 +3020,8 @@ def main():
     mono_launches = phase("mono", mono_phase, tex, dev, medians)
     config_launches = phase("configs", configs_phase, tex, dev, medians)
     option_launches = phase("options", options_phase, tex, frames, dev)
-    graph_launches = phase("graph", graph_phase, dev)
     vio_launches = phase("vio", vio_phase, tex, dev)
+    graph_launches = phase("graph", graph_phase, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
     dist_launches = phase("dist", dist_phase)
     eval_launches = phase("eval", eval_phase, dev)

@@ -33,8 +33,10 @@ matmul-precision switch (``utils.precision.pin_fp32``), the native PNG
 loader (``data.png``) and the Pallas internals. Both TPU kernels of the JAX
 package have hand-written Hopper counterparts in ``ops.cuda.klt_kernel``
 (source in ``csrc/``): the fused bidirectional KLT ``klt_bidir``
-(translation and rotation) and the per-level ``klt_level``. The VO step
-also runs compiled, as JAX's ``jax.jit(step)`` does:
-``models.estimator.make_compiled_estimator_step`` replays CUDA graphs of
-the step's segments (``utils.graphs``).
+(translation and rotation) and the per-level ``klt_level``. The VO, VIO
+and mono steps also run compiled, as JAX's jitted steps do:
+``models.estimator.make_compiled_estimator_step``,
+``models.estimator_vio.make_compiled_vio_estimator_step`` and
+``models.mono_tracker.make_compiled_mono_step`` replay CUDA graphs of the
+steps' segments (``utils.graphs``).
 """

@@ -17,6 +17,11 @@ log lines, statistics and output files. What differs:
   * A frame whose step fails is logged, skipped and counted in
     ``PlayerResult.n_failed``, unless the failure is the kernel layer's (a
     build or launch error, a CUDA error): that is raised.
+  * On the card the step is compiled (CUDA graphs of its segments:
+    models/estimator.make_compiled_estimator_step, for ``--vio``
+    models/estimator_vio.make_compiled_vio_estimator_step), as the JAX CLI
+    runs its jitted step; ``--stage-timing`` and the CPU run the eager
+    step.
   * ``--vio``: each frame's IMU buffer (64 masked samples) is built on
     the host and handed to the VIO step as host arrays, which the step
     uploads as one pinned copy.
@@ -262,7 +267,11 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
             # The config resolved for the VIO estimator kind.
             ecfg, rig = make_estimator_config(cfg, kind="vio", device=dev)
             vcfg = vio_config(cfg, ecfg)
-            step = ev.make_vio_estimator_step(vcfg)
+            # On the card the VIO step runs as CUDA graphs, as the JAX CLI
+            # runs its jitted step.
+            step = (ev.make_compiled_vio_estimator_step(vcfg, device=dev)
+                    if dev.type == "cuda"
+                    else ev.make_vio_estimator_step(vcfg))
             state = vio_bootstrap(vcfg, imu_data, dtype, dev)
             log.info("VIO mode: %d IMU samples loaded", len(samples))
         else:

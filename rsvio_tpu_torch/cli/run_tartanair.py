@@ -8,7 +8,9 @@ viewer hooks. The tracker YAML of the experimental crate maps as in the JAX
 package; a non-zero ``optical_flow_lm_lambda`` stays on the KLT kernel (the
 JAX CLI's warning that it leaves the kernel is stale there too). Each
 frame's tracked / alive counts (with a viewer, also the table, pyramid and
-score map) are read with one device-to-host copy.
+score map) are read with one device-to-host copy. On the card the frame's
+pyramid build and step run as CUDA graphs (models/mono_tracker.
+make_compiled_mono_step); the viewer's score map is computed outside them.
 
     python -m rsvio_tpu_torch.cli.run_tartanair <seq> [--config <yaml>]
 """
@@ -132,6 +134,10 @@ def main(argv=None):
                                          args.capacity)
     table = mt.init_mono_table(args.capacity, device=dev)
     upload = uploader(dev, torch.float32)
+    # On the card the pyramid build and the step run as CUDA graphs, as the
+    # JAX CLI runs its jitted step.
+    compiled = (mt.make_compiled_mono_step(cfg, make_pyramid, device=dev)
+                if dev.type == "cuda" else None)
 
     res = MonoResult()
     pyr_prev = None
@@ -141,10 +147,15 @@ def main(argv=None):
     try:
         for k, frame in enumerate(frames):
             t0 = time.time()
-            pyr = make_pyramid(upload(frame.tensors[0]))
-            table, stats = mt.mono_tracker_step(
-                table, pyr_prev if pyr_prev is not None else pyr, pyr, cfg,
-                first_frame=(pyr_prev is None))
+            img = upload(frame.tensors[0])
+            if compiled is not None:
+                table, stats = compiled(table, img, first_frame=k == 0)
+                pyr = compiled.pyramid
+            else:
+                pyr = make_pyramid(img)
+                table, stats = mt.mono_tracker_step(
+                    table, pyr_prev if pyr_prev is not None else pyr, pyr,
+                    cfg, first_frame=(pyr_prev is None))
             reads = dict(stats)
             if viewer_on:
                 reads.update(alive_mask=table.alive, pos=table.pos,

@@ -36,7 +36,8 @@ refinement, the flow gate) is a device select. Two steps run the segments:
   replays CUDA graphs of the five segment variants. It mirrors kf_count
   and frame_id on the host, from which pnp_ready, full_now and the draws'
   seed follow, and reads only is_kf: one blocking read a frame
-  (``CompiledStep``).
+  (``CompiledStep``; ``GraphStep`` holds what it shares with the compiled
+  VIO step of models/estimator_vio.py).
 """
 
 from __future__ import annotations
@@ -881,83 +882,64 @@ KERNEL_COUNTERS = ((klt_kernel.klt_bidir, "launches"),
                    (klt_kernel.klt_level, "launches"))
 
 
-class CompiledStep:
-    """The per-frame step as CUDA graphs: the port's counterpart of
-    ``jax.jit(step)`` (make_compiled_estimator_step builds it; called as
-    step(state, rig, img0, img1) -> (state, FrameOutput) with the eager
-    step's results).
-
-    Segment M (frames, track, motion) has a variant for each pnp_ready,
-    segment K (the keyframe stage) one for no keyframe, a keyframe before
-    the window solve engages, and a keyframe with the solve: JAX's three
-    lax.conds. The host mirrors what decides them — `mirror` holds the
-    next frame's (frame_id, kf_count), from which pnp_ready, full_now and
-    the RANSAC draws' seed follow — and reads only is_kf from the device:
-    segment M ends by copying it to pinned host memory and the step waits
-    for that copy (`host_reads` counts the waits, one a frame). The mirror
-    is read from the state once whenever the step is handed a state it did
-    not return last (a first call, a checkpoint's state): one more
-    blocking read then.
+class GraphStep:
+    """What the compiled steps share (CompiledStep here, CompiledVIOStep in
+    models/estimator_vio.py): the segment variants (utils.graphs.Graphs),
+    the host mirror of the state's counts, the fixed input buffers, the one
+    blocking read of is_kf a frame and the ping-pong output buffers.
 
     Inputs go into fixed buffers (utils.graphs.Slab): the state (skipped
-    when it is the one this step just returned), the rig (when it is not
-    the object of the last call), both images, and the gate's draws, made
-    on the host for the mirrored frame id and copied to the card outside
-    the graphs. Results come back in one of two output buffers used in
-    turn, so a state and output returned by call k stay unchanged through
-    call k + 1 and are overwritten by call k + 2: keep a copy of what must
-    live longer.
+    when it is the one this step just returned; otherwise the subclass
+    reads its mirror from it), the rig (when it is not the object of the
+    last call), both images, and the gate's draws, made on the host for the
+    mirrored frame id and copied to the card outside the graphs. The first
+    segment ends by copying is_kf to pinned host memory and the step waits
+    for that copy (`host_reads` counts the waits, one a frame). Results come
+    back in one of two output buffers used in turn, so a state and output
+    returned by call k stay unchanged through call k + 1 and are overwritten
+    by call k + 2: keep a copy of what must live longer.
 
     On CUDA a failed capture or replay raises utils.graphs.GraphError; the
     step never falls back to eager execution. On the CPU (device="cpu") the
-    same segments and buffers run eagerly. `graphs` (utils.graphs.Graphs)
-    holds each variant's capture time."""
+    same segments and buffers run eagerly. `graphs` holds each variant's
+    capture time; `last_variants` the variant keys of the last call."""
 
-    def __init__(self, cfg: EstimatorConfig, draws, device):
+    def __init__(self, cfg: EstimatorConfig, draws, device, maker: str):
         self.cfg, self.draws = cfg, draws
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("make_compiled_estimator_step: no CUDA device "
-                               "is available; pass device='cpu' to run the "
-                               "segments eagerly on the CPU")
-        self._sg = _build_segments(_build_stages(cfg))
+            raise RuntimeError(f"{maker}: no CUDA device is available; pass "
+                               "device='cpu' to run the segments eagerly on "
+                               "the CPU")
         self.graphs = graph_mod.Graphs(self.device, KERNEL_COUNTERS)
         self.host_reads = 0
         self.mirror = None
-        self.last_variants = None   # the segment variants of the last call
+        self.last_variants = None
         self._in = self._rig = self._img = self._mid = self._new = None
         self._out, self._turn = None, 0
         self._last, self._rig_src = None, None
         self._gumbel = self._gumbel_host = None
-        pinned = self.device.type == "cuda"
-        self._is_kf_host = torch.zeros(1, dtype=torch.bool, pin_memory=pinned)
-        self._event = torch.cuda.Event() if pinned else None
+        self.pinned = self.device.type == "cuda"
+        self._is_kf_host = torch.zeros(1, dtype=torch.bool,
+                                       pin_memory=self.pinned)
+        self._event = torch.cuda.Event() if self.pinned else None
 
-    def _motion(self, ready: bool):
-        gate = ready and self.cfg.pnp.ransac_hypotheses > 0
-
-        def fn():
-            seg = self._sg.motion(self._in.tree, self._rig.tree,
-                                  *self._img.tree, ready,
-                                  self._gumbel if gate else None)
-            if self._mid is None:
-                self._mid = graph_mod.Slab(seg, self.device)
-            self._mid.load(seg)
-            self._is_kf_host.copy_(self._mid.tree.mo.is_kf.reshape(1),
-                                   non_blocking=True)
-        return fn
-
-    def _opt(self, is_kf: bool, solve: bool):
-        def fn():
-            res = self._sg.opt(self._in.tree, self._rig.tree, self._mid.tree,
-                               is_kf, solve)
-            if self._new is None:
-                self._new = graph_mod.Slab(res, self.device)
-                if not self._in.same_prefix(self._new):
-                    raise ValueError("the step's new state does not have "
-                                     "the layout of its input state")
-            self._new.load(res)
-        return fn
+    def _load(self, state, rig, imgs) -> bool:
+        """The inputs into their buffers; True when `state` was copied in
+        (it is not the one this step returned last)."""
+        dev = self.device
+        if self._in is None:
+            self._in = graph_mod.Slab(state, dev)
+            self._rig = graph_mod.Slab(rig, dev)
+            self._img = graph_mod.Slab(imgs, dev)
+        foreign = state is not self._last
+        if foreign:
+            self._in.load(state)
+        if rig is not self._rig_src:
+            self._rig.load(rig)
+            self._rig_src = rig
+        self._img.load(imgs)
+        return foreign
 
     def _stage_draws(self, frame_id: int):
         """The gate's draws for `frame_id` into the fixed device buffer: made
@@ -969,50 +951,105 @@ class CompiledStep:
         if self._gumbel is None:
             self._gumbel = torch.empty(g.shape, dtype=dtype,
                                        device=self.device)
-            self._gumbel_host = torch.empty(
-                g.shape, dtype=dtype, pin_memory=self.device.type == "cuda")
+            self._gumbel_host = torch.empty(g.shape, dtype=dtype,
+                                            pin_memory=self.pinned)
         self._gumbel_host.copy_(g)
         self._gumbel.copy_(self._gumbel_host, non_blocking=True)
 
-    def __call__(self, state: EstimatorState, rig: CameraRig, img0, img1):
-        cfg, dev = self.cfg, self.device
-        if self._in is None:
-            self._in = graph_mod.Slab(state, dev)
-            self._rig = graph_mod.Slab(rig, dev)
-            self._img = graph_mod.Slab((img0, img1), dev)
-        if state is not self._last:
-            self._in.load(state)
-            kf, fid = torch.stack([state.kf_count.to(torch.int64),
-                                   state.frame_id.to(torch.int64)]).tolist()
-            self.mirror = (fid, kf)
-        if rig is not self._rig_src:
-            self._rig.load(rig)
-            self._rig_src = rig
-        self._img.load((img0, img1))
-        fid, kf = self.mirror
-        ready = bool(pnp_ready(cfg, kf))
-        if ready and cfg.pnp.ransac_hypotheses > 0:
-            self._stage_draws(fid)
-        self.graphs.run(("motion", ready), self._motion(ready))
+    def _keep_mid(self, seg, is_kf):
+        """Inside the first segment: its results into their buffer, is_kf
+        on its way to pinned host memory."""
+        if self._mid is None:
+            self._mid = graph_mod.Slab(seg, self.device)
+        self._mid.load(seg)
+        self._is_kf_host.copy_(is_kf.reshape(1), non_blocking=True)
+
+    def _keep_new(self, res):
+        """Inside the second segment: (new state, output) into their
+        buffer."""
+        if self._new is None:
+            self._new = graph_mod.Slab(res, self.device)
+            if not self._in.same_prefix(self._new):
+                raise ValueError("the step's new state does not have the "
+                                 "layout of its input state")
+        self._new.load(res)
+
+    def _read_is_kf(self) -> bool:
+        """The frame's one blocking read."""
         if self._event is not None:
             self._event.record()
             self._event.synchronize()
         self.host_reads += 1
-        is_kf = bool(self._is_kf_host[0])
-        solve = is_kf and bool(full_now(cfg, kf))
-        self.graphs.run(("opt", is_kf, solve), self._opt(is_kf, solve))
-        self.last_variants = (("motion", ready), ("opt", is_kf, solve))
+        return bool(self._is_kf_host[0])
+
+    def _emit(self):
+        """The new state becomes the next input; (state, output) in the
+        next output buffer."""
         if self._out is None:
-            self._out = [graph_mod.Slab(self._new.template, dev)
+            self._out = [graph_mod.Slab(self._new.template, self.device)
                          for _ in range(2)]
         self._in.buf.copy_(self._new.buf[:self._in.nbytes])
         self._turn ^= 1
         out = self._out[self._turn]
         out.buf.copy_(self._new.buf)
-        self.mirror = (fid + 1, min(kf + 1, cfg.window_size) if is_kf else kf)
         new_state, frame_out = out.fresh_tree()
         self._last = new_state
         return new_state, frame_out
+
+
+class CompiledStep(GraphStep):
+    """The per-frame step as CUDA graphs: the port's counterpart of
+    ``jax.jit(step)`` (make_compiled_estimator_step builds it; called as
+    step(state, rig, img0, img1) -> (state, FrameOutput) with the eager
+    step's results).
+
+    Segment M (frames, track, motion) has a variant for each pnp_ready,
+    segment K (the keyframe stage) one for no keyframe, a keyframe before
+    the window solve engages, and a keyframe with the solve: JAX's three
+    lax.conds. The host mirrors what decides them — `mirror` holds the
+    next frame's (frame_id, kf_count), from which pnp_ready, full_now and
+    the RANSAC draws' seed follow — and reads only is_kf from the device
+    (GraphStep). The mirror is read from the state once whenever the step
+    is handed a state it did not return last (a first call, a checkpoint's
+    state): one more blocking read then."""
+
+    def __init__(self, cfg: EstimatorConfig, draws, device):
+        super().__init__(cfg, draws, device, "make_compiled_estimator_step")
+        self._sg = _build_segments(_build_stages(cfg))
+
+    def _motion(self, ready: bool):
+        gate = ready and self.cfg.pnp.ransac_hypotheses > 0
+
+        def fn():
+            seg = self._sg.motion(self._in.tree, self._rig.tree,
+                                  *self._img.tree, ready,
+                                  self._gumbel if gate else None)
+            self._keep_mid(seg, seg.mo.is_kf)
+        return fn
+
+    def _opt(self, is_kf: bool, solve: bool):
+        def fn():
+            self._keep_new(self._sg.opt(self._in.tree, self._rig.tree,
+                                        self._mid.tree, is_kf, solve))
+        return fn
+
+    def __call__(self, state: EstimatorState, rig: CameraRig, img0, img1):
+        cfg = self.cfg
+        if self._load(state, rig, (img0, img1)):
+            kf, fid = torch.stack([state.kf_count.to(torch.int64),
+                                   state.frame_id.to(torch.int64)]).tolist()
+            self.mirror = (fid, kf)
+        fid, kf = self.mirror
+        ready = bool(pnp_ready(cfg, kf))
+        if ready and cfg.pnp.ransac_hypotheses > 0:
+            self._stage_draws(fid)
+        self.graphs.run(("motion", ready), self._motion(ready))
+        is_kf = self._read_is_kf()
+        solve = is_kf and bool(full_now(cfg, kf))
+        self.graphs.run(("opt", is_kf, solve), self._opt(is_kf, solve))
+        self.last_variants = (("motion", ready), ("opt", is_kf, solve))
+        self.mirror = (fid + 1, min(kf + 1, cfg.window_size) if is_kf else kf)
+        return self._emit()
 
 
 def make_compiled_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,

@@ -16,13 +16,25 @@ masked) besides the stereo images:
     by models.vio_ba (15-dim states, Schur-eliminated landmarks), with a
     15-dim marginalization prior when ``base.use_marginalization``.
 
-Control flow as in models/estimator.py: JAX's two ``lax.cond``s of the
-step (``is_kf`` and ``full_now``) are host branches on the syncs the VO
-step has; every other choice (``have_samples``, the interval's validity,
-the desert factors, the prior update) is a device select. The keyframe
-branch needs the interval's sample count on the host to bound its
-preintegration loop: it comes in the same device-to-host read as
-``is_kf``.
+Control flow as in models/estimator.py: the step is cut at JAX's
+``lax.cond``s (``pnp_ready`` in run_motion, ``is_kf`` and ``full_now``)
+into segments (``VIOSegments``: F, the front stage and the RANSAC
+excision; on a keyframe P, the keyframe stage's prologue with the
+interval's preintegration; K, the rest), each branch a host argument;
+every other choice (``have_samples``, the interval's validity, the desert
+factors, the prior update) is a device select. Each preintegration loop
+runs to a host bound. Two steps run the segments:
+
+- ``make_vio_estimator_step`` runs them eagerly and reads each branch from
+  the device on the syncs the VO step has; the interval's sample count,
+  its loop's bound, comes in the same device-to-host read as ``is_kf``.
+- ``make_compiled_vio_estimator_step``, the counterpart of the JAX
+  package's jitted step, replays CUDA graphs of the segments' variants.
+  It mirrors frame_id, kf_count and buf_count on the host (the frame's
+  valid-sample count comes from the host mask) and reads only ``is_kf``:
+  one blocking read a frame (``CompiledVIOStep``). Its loops run to the
+  counts rounded up to powers of two (``loop_bound``), which gives the
+  same bits.
 
 IMU input. ``gyro``, ``accel``, ``dts``, ``imu_mask`` may be host arrays
 (numpy or CPU tensors): the step then knows from the host mask how many
@@ -39,6 +51,7 @@ import numpy as np
 import torch
 
 from ..ops import lie, projection, pyramid
+from ..utils import graphs as graph_mod
 from ..utils.precision import pin_fp32
 from . import imu as imu_mod
 from . import vio_ba
@@ -301,11 +314,13 @@ class VIOStages(NamedTuple):
     ba_solve: callable
 
 
-def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
-                      probe=None, window_solvers=None) -> VIOStages:
+def _build_vio_stages(cfg: VIOEstimatorConfig, probe=None,
+                      window_solvers=None) -> VIOStages:
     """The per-frame VIO step as named stage functions (JAX's
-    _build_vio_stages). stage_front and stage_kf_pre take, beyond JAX's
-    arguments, the host bound of their preintegration loops."""
+    _build_vio_stages). stage_front takes, beyond JAX's arguments, the
+    host's pnp_ready and the gate's draws (est_mod.read_motion_branch or
+    the compiled step's mirror), and stage_front and stage_kf_pre the host
+    bound of their preintegration loops."""
     b = cfg.base
     W = b.window_size
     B_cap = cfg.interval_buf
@@ -322,7 +337,7 @@ def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
     desert = _bias_desert_on(cfg)
 
     def stage_front(state: VIOEstimatorState, rig: CameraRig, img0, img1,
-                    gyro, accel, dts, imu_mask,
+                    gyro, accel, dts, imu_mask, ready: bool, gumbel,
                     n_steps: int = None) -> VIOFrontOut:
         pyr0 = pyramid.build_pyramid(img0, b.frontend.klt.levels)
         pyr1 = pyramid.build_pyramid(img1, b.frontend.klt.levels)
@@ -360,9 +375,6 @@ def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
         T_pred, v_pred = _imu_predict(state.T_W_B, state.vel, frame_pre)
         T_pred = torch.where(have_samples, T_pred, state.T_W_B)
         v_pred = torch.where(have_samples, v_pred, state.vel)
-        ready, gumbel = est_mod.read_motion_branch(
-            b, state.kf_count, state.frame_id, draws, state.lm.shape[0],
-            T_pred.dtype, T_pred.device)
         mo = est_mod.run_motion(
             b, rig, table, obs_cur, obs_cur_mask, state.lm, state.lm_fid,
             state.lm_birth, state.kf_count, state.last_kf_T_W_B,
@@ -529,72 +541,66 @@ def _build_vio_stages(cfg: VIOEstimatorConfig, draws=gumbel_draws,
                      ba_solve=ba_solve)
 
 
-def _imu_inputs(gyro, accel, dts, imu_mask, dtype, dev):
-    """The step's IMU buffer on `dev` in `dtype` and the host bound of the
-    preintegration loop (1 + the last set mask index; None where the inputs
-    are device tensors). Host inputs go up as one pinned non-blocking
-    copy."""
-    arrs = (gyro, accel, dts, imu_mask)
-    if all(not torch.is_tensor(a) or a.device.type == "cpu" for a in arrs):
-        m = np.asarray(imu_mask.cpu() if torch.is_tensor(imu_mask)
-                       else imu_mask, dtype=bool)
-        n_steps = int(np.flatnonzero(m)[-1]) + 1 if m.any() else 0
-        host = torch.cat([torch.as_tensor(np.asarray(a.cpu() if
-                                                     torch.is_tensor(a)
-                                                     else a)).reshape(
-            len(m), -1).to(dtype) for a in arrs], dim=1)       # (S, 8)
-        if dev.type == "cuda":
-            host = host.pin_memory().to(dev, non_blocking=True)
-        return (host[:, :3], host[:, 3:6], host[:, 6], host[:, 7] > 0.5,
-                n_steps)
-    return (gyro.to(dev, dtype), accel.to(dev, dtype), dts.to(dev, dtype),
-            imu_mask.to(dev), None)
+class VIOSeg(NamedTuple):
+    """Segment F's results: the front stage's outputs, with the feature
+    table and this frame's mask after the RANSAC excision (use_kill), and
+    the state's lm_fid after it."""
+    fr: VIOFrontOut
+    lm_fid: torch.Tensor
 
 
-def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
-                            probe=None, window_solvers=None):
-    """Build the per-frame VIO step
-    (state, rig, img0, img1, gyro (S,3), accel (S,3), dts (S,),
-    imu_mask (S,)) -> (state, FrameOutput). Pins full fp32 and validates
-    the config when called. `draws` and `probe` as in
-    make_estimator_step ("priors_made" counts the marginalized solves that
-    produced the next prior). `window_solvers`: an object with
-    ``solve_vio_ba`` and ``solve_vio_ba_marginalized`` of models.vio_ba's
-    signatures (default models.vio_ba; parallel.dist_estimator passes the
-    landmark-sharded ones)."""
-    pin_fp32()
+class VIOSegments(NamedTuple):
+    """The VIO step cut at its branch points (JAX's lax.conds on is_kf and
+    full_now, and run_motion's on pnp_ready), each branch a host argument,
+    and each preintegration loop's bound a host int:
+    front(state, rig, img0, img1, gyro, accel, dts, imu_mask, ready, gumbel,
+    n_steps) -> VIOSeg (segment F: stage_front, then the excision);
+    kf_pre(state, rig, seg, n_buf) -> VIOKFPrep (segment P, on a keyframe:
+    stage_kf_pre, whose interval loop runs to n_buf); opt(state, rig, seg,
+    prep, solve) -> (state, FrameOutput) (segment K: the rest of the
+    keyframe stage for a VIOKFPrep, or the frame without a keyframe for
+    prep None). The keyframe stage is cut in two at its loop so that a new
+    loop bound is a new variant of the small P alone."""
+    front: callable
+    kf_pre: callable
+    opt: callable
+
+
+def _build_vio_segments(cfg: VIOEstimatorConfig, vst: VIOStages
+                        ) -> VIOSegments:
     b = cfg.base
     W = b.window_size
-    vst = _build_vio_stages(cfg, draws, probe, window_solvers)
     use_kill = b.pnp.ransac_hypotheses > 0 and b.pnp_ransac_kill
 
-    def step(state: VIOEstimatorState, rig: CameraRig, img0, img1,
-             gyro, accel, dts, imu_mask):
-        dev, dtype = state.T_W_B.device, state.T_W_B.dtype
-        gyro, accel, dts, imu_mask, n_steps = _imu_inputs(
-            gyro, accel, dts, imu_mask, dtype, dev)
+    def front(state, rig, img0, img1, gyro, accel, dts, imu_mask,
+              ready: bool, gumbel, n_steps: int = None) -> VIOSeg:
         fr = vst.front(state, rig, img0, img1, gyro, accel, dts, imu_mask,
-                       n_steps=n_steps)
-        mo = fr.mo
-        table, obs_cur_mask = fr.table, fr.obs_cur_mask
+                       ready, gumbel, n_steps=n_steps)
+        lm_fid = state.lm_fid
         if use_kill:
-            table, obs_cur_mask, lm_fid0 = vst.excise(
-                table, obs_cur_mask, state.lm_fid, mo.kill)
-            state = state._replace(lm_fid=lm_fid0)
-        T_cur, v_pred, obs_cur = mo.T_cur, fr.v_pred, fr.obs_cur
-        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+            table, obs_cur_mask, lm_fid = vst.excise(
+                fr.table, fr.obs_cur_mask, state.lm_fid, fr.mo.kill)
+            fr = fr._replace(table=table, obs_cur_mask=obs_cur_mask)
+        return VIOSeg(fr=fr, lm_fid=lm_fid)
 
-        # Host branch (JAX: lax.cond on is_kf): one read a frame, which
-        # also brings the interval's sample count.
-        is_kf, n_buf = torch.stack([mo.is_kf.to(torch.int32),
-                                    fr.buf_count]).tolist()
-        if is_kf:
-            prep = vst.kf_pre(state, rig, table, obs_cur, obs_cur_mask,
-                              fr.buf_gyro, fr.buf_accel, fr.buf_dts,
-                              fr.buf_count, T_cur, v_pred, mo.health,
-                              n_buf=n_buf)
-            # Host branch (JAX: lax.cond on full_now): one read a keyframe.
-            if bool(prep.full_now):
+    def kf_pre(state: VIOEstimatorState, rig: CameraRig, seg: VIOSeg,
+               n_buf: int = None) -> VIOKFPrep:
+        fr, mo = seg.fr, seg.fr.mo
+        return vst.kf_pre(state._replace(lm_fid=seg.lm_fid), rig, fr.table,
+                          fr.obs_cur, fr.obs_cur_mask, fr.buf_gyro,
+                          fr.buf_accel, fr.buf_dts, fr.buf_count, mo.T_cur,
+                          fr.v_pred, mo.health, n_buf=n_buf)
+
+    def opt(state: VIOEstimatorState, rig: CameraRig, seg: VIOSeg,
+            prep: VIOKFPrep, solve: bool):
+        fr, mo = seg.fr, seg.fr.mo
+        state = state._replace(lm_fid=seg.lm_fid)
+        table = fr.table
+        T_cur, v_pred = mo.T_cur, fr.v_pred
+        dev, dtype = T_cur.device, T_cur.dtype
+        zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+        if prep is not None:
+            if solve:
                 res_st, res_lm, ba_ok, ba_it, ba_cost, marg_prior = \
                     vst.ba_solve(prep, rig, state.marg_prior)
             else:
@@ -619,7 +625,7 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
             kf_count, obs_w, obs_m, obs_f, obs_wt = (
                 prep.kf_count, prep.obs_w, prep.obs_m, prep.obs_f,
                 prep.obs_wt)
-            kf_pre, kf_pv = prep.kf_preint, prep.kf_preint_valid
+            kf_pint, kf_pv = prep.kf_preint, prep.kf_preint_valid
             table = prep.table
             tri_mem, n_dyn, lm_birth = prep.tri_mem, prep.n_dyn, \
                 prep.lm_birth
@@ -632,7 +638,7 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
             kf_count, obs_w, obs_m, obs_f, obs_wt = (
                 state.kf_count, state.obs, state.obs_mask, state.obs_fid,
                 state.obs_w)
-            kf_pre, kf_pv = state.kf_preint, state.kf_preint_valid
+            kf_pint, kf_pv = state.kf_preint, state.kf_preint_valid
             lm, lm_fid, lm_birth = state.lm, state.lm_fid, state.lm_birth
             T_out, v_out, bg_out, ba_out = T_cur, v_pred, state.bg, state.ba
             last_kf = state.last_kf_T_W_B
@@ -650,7 +656,7 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
             table=table, pyr0=fr.pyr0, pyr1=fr.pyr1,
             kf_T_W_B=kf_T, kf_vel=kf_v, kf_bg=kf_bg, kf_ba=kf_ba_,
             kf_count=kf_count, obs=obs_w, obs_mask=obs_m, obs_fid=obs_f,
-            obs_w=obs_wt, kf_preint=kf_pre, kf_preint_valid=kf_pv,
+            obs_w=obs_wt, kf_preint=kf_pint, kf_preint_valid=kf_pv,
             buf_gyro=fr.buf_gyro, buf_accel=fr.buf_accel,
             buf_dts=fr.buf_dts, buf_count=buf_count,
             lm=lm, lm_fid=lm_fid, marg_prior=marg_prior,
@@ -671,4 +677,247 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
             n_pnp_candidates=mo.n_pnp, health=mo.health)
         return new_state, out
 
+    return VIOSegments(front=front, kf_pre=kf_pre, opt=opt)
+
+
+def _is_host(*arrs) -> bool:
+    return all(not torch.is_tensor(a) or a.device.type == "cpu"
+               for a in arrs)
+
+
+def _imu_host(gyro, accel, dts, imu_mask, dtype):
+    """Host IMU arrays packed as one (S, 8) CPU tensor in `dtype` (gyro,
+    accel, dts, mask as 0 / 1), with the loop bound n_steps (1 + the last
+    set mask index, 0 without one) and the count of set samples."""
+    m = np.asarray(imu_mask.cpu() if torch.is_tensor(imu_mask)
+                   else imu_mask, dtype=bool)
+    n_steps = int(np.flatnonzero(m)[-1]) + 1 if m.any() else 0
+    host = torch.cat([torch.as_tensor(np.asarray(
+        a.cpu() if torch.is_tensor(a) else a)).reshape(len(m), -1).to(dtype)
+        for a in (gyro, accel, dts, imu_mask)], dim=1)
+    return host, n_steps, int(m.sum())
+
+
+def _imu_split(buf):
+    """(S, 8) packed IMU buffer -> gyro, accel, dts, mask."""
+    return buf[:, :3], buf[:, 3:6], buf[:, 6], buf[:, 7] > 0.5
+
+
+def _imu_inputs(gyro, accel, dts, imu_mask, dtype, dev):
+    """The step's IMU buffer on `dev` in `dtype` and the host bound of the
+    preintegration loop (1 + the last set mask index; None where the inputs
+    are device tensors). Host inputs go up as one pinned non-blocking
+    copy."""
+    if _is_host(gyro, accel, dts, imu_mask):
+        host, n_steps, _ = _imu_host(gyro, accel, dts, imu_mask, dtype)
+        if dev.type == "cuda":
+            host = host.pin_memory().to(dev, non_blocking=True)
+        return (*_imu_split(host), n_steps)
+    return (gyro.to(dev, dtype), accel.to(dev, dtype), dts.to(dev, dtype),
+            imu_mask.to(dev), None)
+
+
+def loop_bound(n: int, cap: int) -> int:
+    """A preintegration loop's bound for n samples in the compiled step: n
+    rounded up to a power of two, at least 8, at most cap (the buffer's
+    length). A masked sample past the last valid one changes no bit of the
+    result (models/imu.preintegrate), so any bound >= n gives the bits of
+    n; the rounding keeps the number of graph variants small."""
+    b = 8
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
+                            probe=None, window_solvers=None):
+    """Build the per-frame VIO step
+    (state, rig, img0, img1, gyro (S,3), accel (S,3), dts (S,),
+    imu_mask (S,)) -> (state, FrameOutput). Pins full fp32 and validates
+    the config when called. `draws` and `probe` as in
+    make_estimator_step ("priors_made" counts the marginalized solves that
+    produced the next prior). `window_solvers`: an object with
+    ``solve_vio_ba`` and ``solve_vio_ba_marginalized`` of models.vio_ba's
+    signatures (default models.vio_ba; parallel.dist_estimator passes the
+    landmark-sharded ones).
+
+    The step runs the segments eagerly and reads its branches from the
+    device: one read for pnp_ready (with the RANSAC gate, together with
+    the frame id that seeds its draws), one for is_kf with the interval's
+    sample count (its preintegration loop's bound), one more on a keyframe
+    for full_now (make_compiled_vio_estimator_step mirrors them on the
+    host instead)."""
+    pin_fp32()
+    b = cfg.base
+    sg = _build_vio_segments(cfg, _build_vio_stages(cfg, probe,
+                                                    window_solvers))
+
+    def step(state: VIOEstimatorState, rig: CameraRig, img0, img1,
+             gyro, accel, dts, imu_mask):
+        dev, dtype = state.T_W_B.device, state.T_W_B.dtype
+        gyro, accel, dts, imu_mask, n_steps = _imu_inputs(
+            gyro, accel, dts, imu_mask, dtype, dev)
+        ready, gumbel = est_mod.read_motion_branch(
+            b, state.kf_count, state.frame_id, draws, state.lm.shape[0],
+            dtype, dev)
+        seg = sg.front(state, rig, img0, img1, gyro, accel, dts, imu_mask,
+                       ready, gumbel, n_steps=n_steps)
+        # Host branch (JAX: lax.cond on is_kf): one read a frame, which
+        # also brings the interval's sample count.
+        is_kf, n_buf = torch.stack([seg.fr.mo.is_kf.to(torch.int32),
+                                    seg.fr.buf_count]).tolist()
+        if not is_kf:
+            return sg.opt(state, rig, seg, None, False)
+        prep = sg.kf_pre(state, rig, seg, n_buf=n_buf)
+        # Host branch (JAX: lax.cond on full_now): one read a keyframe.
+        return sg.opt(state, rig, seg, prep,
+                      bool(est_mod.full_now(b, state.kf_count)))
+
     return step
+
+
+class CompiledVIOStep(est_mod.GraphStep):
+    """The per-frame VIO step as CUDA graphs: the port's counterpart of the
+    JAX package's jitted VIO step (make_compiled_vio_estimator_step builds
+    it; called as step(state, rig, img0, img1, gyro, accel, dts, imu_mask)
+    -> (state, FrameOutput) with make_vio_estimator_step's results).
+
+    Segment F (stage_front and the RANSAC excision) has a variant for each
+    pnp_ready and bound of the frame's preintegration loop, key
+    ("front", ready, bound). On a keyframe segment P (stage_kf_pre) runs a
+    variant per bound of the interval's preintegration loop,
+    ("kf_pre", bound), then segment K (the rest of the keyframe stage) a
+    variant before the window solve engages and one with the solve,
+    ("kf", True, solve); a frame without a keyframe runs K's ("kf", False)
+    alone. The bounds are loop_bound of the valid samples: at most 4 frame
+    bounds up to the 64-slot buffer and 7 interval bounds up to
+    interval_buf = 512, where a loop over the whole buffer would replay ~50
+    small kernels a slot. Cutting the keyframe stage at its loop keeps the
+    solve (~22,000 kernels, ~1 s to run first and capture on an H100) out
+    of the variants that a new interval length adds.
+
+    `mirror` holds the next frame's (frame_id, kf_count, buf_count): with
+    the frame's valid-sample count from the host mask it gives pnp_ready,
+    the draws' seed, the frame's bound, the interval's sample count
+    (min(buf_count + n_valid, interval_buf), as the state's) and full_now;
+    after a keyframe buf_count is 0. Only is_kf is read from the device
+    (GraphStep); the mirror is read from a state the step did not return
+    (a first call, a bootstrap, a checkpoint's state), one more read then.
+
+    The IMU buffer goes into a fixed (S, 8) device buffer outside the
+    graphs: host arrays through one persistent pinned staging buffer (the
+    frame's one blocking read orders its reuse); device tensors with one
+    more blocking read a frame, of their valid count and bound (counted in
+    `host_reads`)."""
+
+    def __init__(self, cfg: VIOEstimatorConfig, draws, device):
+        super().__init__(cfg.base, draws, device,
+                         "make_compiled_vio_estimator_step")
+        self.vcfg = cfg
+        self._sg = _build_vio_segments(cfg, _build_vio_stages(cfg))
+        self._imu = self._imu_host = self._prep = None
+
+    def _stage_imu(self, gyro, accel, dts, imu_mask):
+        """The frame's IMU buffer into the fixed device buffer; returns
+        (n_steps, n_valid) on the host."""
+        dtype = self._in.tree.T_W_B.dtype
+        if _is_host(gyro, accel, dts, imu_mask):
+            host, n_steps, n_valid = _imu_host(gyro, accel, dts, imu_mask,
+                                               dtype)
+        else:
+            m = imu_mask.to(self.device).reshape(-1)
+            host = torch.cat([x.to(self.device, dtype).reshape(len(m), -1)
+                              for x in (gyro, accel, dts, m)], dim=1)
+            idx = torch.arange(1, len(m) + 1, device=self.device)
+            n_valid, n_steps = torch.stack([
+                m.to(torch.int64).sum(),
+                torch.where(m, idx, torch.zeros_like(idx)).max()]).tolist()
+            self.host_reads += 1
+        if self._imu is None:
+            self._imu = torch.empty(host.shape, dtype=dtype,
+                                    device=self.device)
+            self._imu_host = torch.empty(host.shape, dtype=dtype,
+                                         pin_memory=self.pinned)
+        if host.device.type == "cpu":
+            self._imu_host.copy_(host)
+            host = self._imu_host
+        self._imu.copy_(host, non_blocking=True)
+        return n_steps, n_valid
+
+    def _front(self, ready: bool, bound: int):
+        gate = ready and self.cfg.pnp.ransac_hypotheses > 0
+
+        def fn():
+            seg = self._sg.front(self._in.tree, self._rig.tree,
+                                 *self._img.tree, *_imu_split(self._imu),
+                                 ready, self._gumbel if gate else None,
+                                 n_steps=bound)
+            self._keep_mid(seg, seg.fr.mo.is_kf)
+        return fn
+
+    def _kf_pre(self, bound: int):
+        def fn():
+            prep = self._sg.kf_pre(self._in.tree, self._rig.tree,
+                                   self._mid.tree, n_buf=bound)
+            if self._prep is None:
+                self._prep = graph_mod.Slab(prep, self.device)
+            self._prep.load(prep)
+        return fn
+
+    def _opt(self, is_kf: bool, solve: bool):
+        def fn():
+            self._keep_new(self._sg.opt(
+                self._in.tree, self._rig.tree, self._mid.tree,
+                self._prep.tree if is_kf else None, solve))
+        return fn
+
+    def __call__(self, state: VIOEstimatorState, rig: CameraRig, img0, img1,
+                 gyro, accel, dts, imu_mask):
+        b, cap = self.cfg, self.vcfg.interval_buf
+        if self._load(state, rig, (img0, img1)):
+            kf, fid, buf = torch.stack([
+                state.kf_count.to(torch.int64),
+                state.frame_id.to(torch.int64),
+                state.buf_count.to(torch.int64)]).tolist()
+            self.mirror = (fid, kf, buf)
+        n_steps, n_valid = self._stage_imu(gyro, accel, dts, imu_mask)
+        fid, kf, buf = self.mirror
+        ready = bool(est_mod.pnp_ready(b, kf))
+        if ready and b.pnp.ransac_hypotheses > 0:
+            self._stage_draws(fid)
+        front = ("front", ready, loop_bound(n_steps, self._imu.shape[0]))
+        self.graphs.run(front, self._front(ready, front[2]))
+        is_kf = self._read_is_kf()
+        n_buf = min(buf + n_valid, cap)
+        pre = None
+        solve = is_kf and bool(est_mod.full_now(b, kf))
+        if is_kf:
+            pre = ("kf_pre", loop_bound(n_buf, cap))
+            self.graphs.run(pre, self._kf_pre(pre[1]))
+        kf_key = ("kf", True, solve) if is_kf else ("kf", False)
+        self.graphs.run(kf_key, self._opt(is_kf, solve))
+        self.last_variants = (front, pre, kf_key)
+        self.mirror = (fid + 1, min(kf + 1, b.window_size) if is_kf else kf,
+                       0 if is_kf else n_buf)
+        return self._emit()
+
+
+def make_compiled_vio_estimator_step(cfg: VIOEstimatorConfig,
+                                     draws=gumbel_draws, device="cuda",
+                                     probe=None):
+    """The per-frame VIO step (state, rig, img0, img1, gyro, accel, dts,
+    imu_mask) -> (state, FrameOutput) as CUDA graphs of its segments
+    (CompiledVIOStep): the counterpart of the JAX package's jitted
+    make_vio_estimator_step, with the eager step's results. Pins full fp32
+    and validates the config. `draws` as in make_vio_estimator_step
+    (called with the CPU as its device). `device`: "cuda" (the default;
+    raises without a card) or "cpu", where the same segments run eagerly.
+    `probe` is refused (ValueError): its counts are Python dict updates,
+    which a replay would not run; use make_vio_estimator_step for it. The
+    sharded window solvers (parallel.dist_estimator) stay on the eager
+    step."""
+    if probe is not None:
+        raise ValueError("probe counts cannot be replayed from a CUDA graph; "
+                         "use make_vio_estimator_step(cfg, probe=...)")
+    pin_fp32()
+    return CompiledVIOStep(cfg, draws, device)

@@ -129,6 +129,7 @@ class Graphs:
         self.counters = tuple(counters)
         self.graphs = {}        # key -> (CUDAGraph, counter deltas)
         self.capture_ms = {}    # key -> ms of the first run and the capture
+        self.uses = {}          # key -> runs (the first one and replays)
         self.replays = 0
         self._stream = None
 
@@ -138,6 +139,7 @@ class Graphs:
     def run(self, key, fn):
         """Run variant `key` (`fn()`, which reads and writes slabs): replay
         its graph, or on its first use run it eagerly and capture it."""
+        self.uses[key] = self.uses.get(key, 0) + 1
         if self.device.type != "cuda":
             fn()
             return

@@ -268,16 +268,19 @@ class _Guard:
             return orig(t, index, *a)
         return f
 
+    def wrap(self, fn):
+        """`fn` watched while it runs."""
+        def g(*a, **k):
+            self.active, self.calls = True, self.calls + 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self.active = False
+        return g
+
     def segments(self, sg):
-        def wrap(fn):
-            def g(*a, **k):
-                self.active, self.calls = True, self.calls + 1
-                try:
-                    return fn(*a, **k)
-                finally:
-                    self.active = False
-            return g
-        return test_.Segments(motion=wrap(sg.motion), opt=wrap(sg.opt))
+        """A step's segments (a NamedTuple of functions), each watched."""
+        return type(sg)(*(self.wrap(fn) for fn in sg))
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -358,6 +358,13 @@ def _default_device_calls():
         "make_compiled_estimator_step": (
             test_.make_compiled_estimator_step,
             lambda: test_.make_compiled_estimator_step(cfg)),
+        "make_compiled_vio_estimator_step": (
+            tev.make_compiled_vio_estimator_step,
+            lambda: tev.make_compiled_vio_estimator_step(vcfg)),
+        "make_compiled_mono_step": (
+            tmono.make_compiled_mono_step,
+            lambda: tmono.make_compiled_mono_step(tmono.MonoTrackerConfig(),
+                                                  lambda img: (img,))),
     }
 
 
@@ -366,7 +373,8 @@ def _default_device_calls():
     "state_from_numpy", "pack_params", "init_mono_table",
     "make_estimator_config", "init_vio_state", "initialize_vio_state",
     "vio_state_from_numpy", "make_estimator_config_vio",
-    "make_compiled_estimator_step"])
+    "make_compiled_estimator_step", "make_compiled_vio_estimator_step",
+    "make_compiled_mono_step"])
 def test_entry_points_default_to_cuda(name):
     """Entry points run on the card unless the caller asks for the CPU:
     their device default is CUDA, and without a card the default raises

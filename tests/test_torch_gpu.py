@@ -56,7 +56,13 @@ segments) against the eager step over 30 frames of the small scene in the
 default, marginalized and adaptive configs: flags equal, poses within
 1e-5 m, 2 K1 launches a frame, one blocking read a frame (every call after
 the first under ``set_sync_debug_mode("error")``); and the RANSAC vote's
-exact tie of ROADMAP C4 going to the lower index on the card.
+exact tie of ROADMAP C4 going to the lower index on the card. The compiled
+VIO step (make_compiled_vio_estimator_step) against the eager VIO step over
+30 frames with the hover IMU buffer (FIFO, marginalized, RANSAC gate with
+adaptive weights): poses within 1e-5 m, 2 K1 launches and one blocking read
+a frame, and with the IMU buffer as CUDA tensors the same poses and one
+more read a frame; the compiled mono step (make_compiled_mono_step)
+against the eager pyramid build and step: the counts equal, no read.
 """
 
 import glob
@@ -1346,6 +1352,123 @@ def test_vio_frame_syncs_equal_vo_step(dev):
         assert key in per_kind["vo"], (key, per_kind)
         assert counts == per_kind["vo"][key], (
             key, per_kind, where[("vo", key)], where[("vio", key)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [
+    dict(), dict(use_marginalization=True),
+    dict(use_obs_weights=True, pnp_prior_adaptive=True,
+         vision_weight_adaptive=True)],
+    ids=["fifo", "marg", "gate"])
+def test_compiled_vio_step_on_cuda_matches_eager(dev, opts):
+    """make_compiled_vio_estimator_step on the card (CUDA graphs) against
+    the eager VIO step over 30 frames of the small scene with the hover IMU
+    buffer (host arrays): flags and counts equal, poses within 1e-5 m,
+    exactly 2 K1 launches a frame and one blocking read a frame (every
+    call after the first under torch.cuda.set_sync_debug_mode("error")).
+    The same frames with the IMU buffer as CUDA tensors: the same poses,
+    bit for bit, and one more blocking read a frame (its valid count)."""
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    base, frames, shape = _small_scene(30)
+    pnp = base.pnp
+    if opts.get("pnp_prior_adaptive"):
+        pnp = pnp._replace(ransac_hypotheses=16, motion_prior_weight=20.0)
+    cfg = _vio_cfg(base, pnp=pnp, **opts)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    imu_dev = [torch.from_numpy(x).to(dev) for x in _hover_imu()]
+    outs, steps = {}, {}
+    for name in ("eager", "compiled", "compiled_dev"):
+        step = (ev.make_vio_estimator_step(cfg) if name == "eager"
+                else ev.make_compiled_vio_estimator_step(cfg, device=dev))
+        state = ev.init_vio_state(cfg, device=dev)
+        torch.cuda.synchronize()
+        kk.klt_bidir.launches = 0
+        outs[name] = []
+        for k, (a, b) in enumerate(frames_d):
+            imu_args = imu_dev if name == "compiled_dev" else _hover_imu()
+            if name == "compiled" and k > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, out = step(state, rig, a, b, *imu_args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs[name].append(est.FrameOutput(*(t.clone() for t in out)))
+        assert kk.klt_bidir.launches == 2 * len(frames), name
+        steps[name] = step
+    assert steps["compiled"].host_reads == len(frames)
+    assert steps["compiled_dev"].host_reads == 2 * len(frames)
+    graphs = steps["compiled"].graphs
+    assert len(graphs.graphs) >= 4 and graphs.replays > 0
+    for k, (oe, oc, od) in enumerate(zip(outs["eager"], outs["compiled"],
+                                         outs["compiled_dev"])):
+        for f in ("is_keyframe", "pnp_success", "ba_success", "n_tracked",
+                  "n_landmarks", "n_alive", "n_ransac_inliers"):
+            assert int(getattr(oe, f)) == int(getattr(oc, f)), (k, f)
+        gap = float((oe.T_W_B - oc.T_W_B)[:3, 3].abs().max())
+        assert gap <= 1e-5, (k, gap)
+        assert torch.equal(oc.T_W_B, od.T_W_B), k
+    assert any(bool(o.ba_success) for o in outs["compiled"])
+
+
+@pytest.mark.gpu
+def test_compiled_mono_step_on_cuda_matches_eager(dev):
+    """make_compiled_mono_step on the card against the eager pyramid build
+    and mono_tracker_step over 20 frames (config/tartanair.yaml's tracker
+    at 96x128): the counts and the table's alive / id fields equal,
+    positions within 1e-4 px, K1 launched once a frame after the first, and
+    no blocking read (every call under set_sync_debug_mode("error"))."""
+    from rsvio_tpu_torch.models import mono_tracker as mt
+
+    shape = (96, 128)
+    tex = bench_scene.make_texture(1, size=768,
+                                   octaves=((90.0, 24), (60.0, 96)))
+    imgs = [bench_scene.render(tex, 0.02 * k, shape=shape, fx=100.0,
+                               plane_z=4.0, scale=60.0,
+                               offset=200.0).to(dev) for k in range(20)]
+    cfg = mt.MonoTrackerConfig(
+        capacity=48, cell_size=12, detect_margin=8, min_score=2.5 / 4000.0,
+        detect_mode="nms", nms_radius=8, nms_max_new=32,
+        klt=KLTConfig(levels=3, max_iterations=30,
+                      convergence_threshold=0.005, lm_lambda=0.1,
+                      pyramid_ratio=0.5))
+
+    def make_pyramid(img):
+        return pyramid.build_pyramid_ratio(img, 3, 0.5, blur=True,
+                                           blur_sigma=2.0)
+
+    runs = {}
+    for name in ("eager", "compiled"):
+        table = mt.init_mono_table(cfg.capacity, device=dev)
+        step = mt.make_compiled_mono_step(cfg, make_pyramid, device=dev)
+        torch.cuda.synchronize()
+        kk.klt_bidir.launches = 0
+        runs[name], prev = [], None
+        for k, img in enumerate(imgs):
+            if name == "eager":
+                pyr = make_pyramid(img)
+                table, stats = mt.mono_tracker_step(
+                    table, pyr if k == 0 else prev, pyr, cfg,
+                    first_frame=k == 0)
+                prev = pyr
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    table, stats = step(table, img, first_frame=k == 0)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            runs[name].append([t.clone() for t in (
+                table.pos, table.alive, table.fid, stats["tracked"],
+                stats["alive"])])
+        assert kk.klt_bidir.launches == len(imgs) - 1, name
+    assert step.host_reads == 0 and step.graphs.replays == len(imgs) - 2
+    for k, (e, c) in enumerate(zip(runs["eager"], runs["compiled"])):
+        for x, y in zip(e[1:], c[1:]):
+            assert torch.equal(x, y), k
+        alive = e[1]
+        assert float((e[0] - c[0])[alive].abs().max()) <= 1e-4, k
+    assert min(int(e[3]) for e in runs["eager"][1:]) >= 8
 
 
 # ------------------------------------------------------------ distributed
