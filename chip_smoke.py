@@ -58,7 +58,7 @@ them. Phases, each of which raises on failure:
                (bench_scene.render_rig). One override, printed:
                keyframe_management.translation_threshold is lowered to
                0.05 m where larger, or the window never fills in the frames
-               run. 6 warm-up, 30 timed, 20 blocked and 10 split frames
+               run. 6 warm-up, 20 timed, 20 blocked and 10 split frames
                each (the per-stage split as in main); the floors of the
                main path (a config with a fixed PnP motion prior lags by
                design between keyframes and is held to drift <= 2% at the
@@ -67,7 +67,7 @@ them. Phases, each of which raises on failure:
                and won on at least half of the frames after the window
                fills.
   9. options — the window options on the bench scene at full width, each
-               run 6 warm-up, 30 timed, 20 blocked and 10 split frames:
+               run 6 warm-up, 20 timed, 20 blocked and 10 split frames:
                "marg" (the default config with use_marginalization, as
                --marginalization gives), "euroc_vo_dynamic+marg+cv" (that
                file with its commented marginalization and pnp_cv_predict
@@ -183,15 +183,33 @@ them. Phases, each of which raises on failure:
                marginalization on the vio phase's euroc scene and IMU
                stream), each frame synchronized, every window solve
                synchronized and timed, beside the single-device step on
-               the same frames (run first by rank 0 alone). Requires the
+               the same frames (run first by rank 0 alone; the gloo run
+               reuses the NCCL run's records of it). Requires the
                floors of main (VIO: of the vio phase, velocity too), the
                poses within 5e-3 m (VO) and 1e-2 (VIO, the velocity too)
                of the single-device step's with equal keyframes (the
                tolerances of tests/test_dist_estimator.py), the ranks'
                poses bitwise equal, exactly 2 K1 launches a frame on every
                rank and a sharded solve fired; prints frames/s, the
-               blocked median and the median solve ms of both, and the
-               all-reduce calls and bytes a solve.
+               blocked median (keyframe frames and the others apart) and
+               the median solve ms of both, and the all-reduce calls and
+               bytes a solve. On the NCCL run the compiled distributed
+               steps (parallel.dist_estimator.make_compiled_distributed_*:
+               CUDA graphs with the solve's collectives captured) then run
+               the same frames, every call after the first under
+               torch.cuda.set_sync_debug_mode("error"), beside the eager
+               distributed runs and the single-device compiled step (rank
+               0, before them): positions (VIO: the velocity too) within
+               1e-5 m of the eager distributed step's with equal
+               keyframes, the poses and each frame's variant keys equal
+               across ranks, the run's collective counts equal to the
+               eager run's, one blocking read and exactly 2 K1 launches a
+               frame; printed: frames/s and blocked medians, the device
+               ms of segment K on solve frames (CUDA events around the
+               variant's run in place), each variant's ms of first run and
+               capture and the memory the graphs hold. On the gloo run
+               the compiled makers must raise ValueError (gloo's
+               collectives cannot be captured).
  13. eval    — the evaluation harness (utils.evaluation.
                run_synthetic_sequence, as tools/accuracy_matrix drives it)
                at the matrix's full-width geometry (752x480, 6 levels, cell
@@ -210,6 +228,11 @@ them. Phases, each of which raises on failure:
                printed, not held on the occlusion runs (the transit's
                outcome swings with the IMU-noise seed and the profile in
                the JAX package itself, tools/accuracy_matrix.py:55-72).
+               These runs pass the probe, so the harness drives the eager
+               step; each is repeated without it, through the compiled
+               step (the harness's default), held to positions within
+               1e-5 m of the eager run and 2 K1 launches a frame, its
+               frames/s printed beside the eager run's.
  14. graph   — runs right after phase 10 (vio), repeating the eager
                runs of phases 5-10: models.estimator.
                make_compiled_estimator_step (the step as CUDA graphs of its
@@ -217,7 +240,7 @@ them. Phases, each of which raises on failure:
                rig and config of main (6 warm-up frames, which capture the
                variants met by then, 60 timed, 20 blocked), rotation, each
                shipped config and the options phase's marg run (6 warm-up,
-               30 timed, 20 blocked each); models.estimator_vio.
+               20 timed, 20 blocked each); models.estimator_vio.
                make_compiled_vio_estimator_step on the vio phase's three
                runs (their frames, IMU buffers as host arrays and
                bootstrap; 6 warm-up, 30 timed, 20 blocked); and
@@ -258,12 +281,26 @@ them. Phases, each of which raises on failure:
                against the eager step driven directly, tartanair against
                the eager mono step's counts on the same decoded frames.
 
+ 15. tools   — tools.bench_solvers (W=10, L=256, 20 LM iterations, 5 calls
+               each) and tools.profile_components at 752x480, compiled
+               (utils.graphs.compile_function: CUDA graphs, as the JAX
+               tools time jitted functions) and with --eager in the same
+               call; exactly 1 K1 launch a KLT call both ways; prints both
+               and their ratios.
+ 16. gpu_tests — the gpu tests of tests/test_torch_gpu.py for the compiled
+               distributed steps (NCCL at world size 1 in the test
+               process), the compiled function and the compiled harness,
+               in a pytest process of their own: all 7 cases pass.
+
 Every path phase sets the launch counts to 0 just before it and reads them
 just after. ``python3 chip_smoke.py --cli-ab`` instead runs only the build
 and cli_ab (the euroc CLI against the direct step, in turns), and
 ``--dist-profile`` only the build and dist_profile (the sharded and the
-single-device BA at one NCCL rank, timed in turns and profiled); neither
-prints a result line. Drift is against the scene's truth, bench_scene.truth_position
+single-device BA at one NCCL rank, timed in turns and profiled), and
+``--dist-nccl`` only the build, parallel.dryrun.dryrun_multichip and the
+dist phase's NCCL run at one rank per card on every card of the machine
+(on a four-card machine the compiled distributed steps across four NCCL
+ranks); none prints a result line. Drift is against the scene's truth, bench_scene.truth_position
 (0.03 m a frame along the left camera's x axis). Prints the card's name and
 power limit, per-phase numbers, a JSON line {"kernels": [...]} and, as the
 last line, {"ok": true, "device": {...}}.
@@ -279,8 +316,8 @@ import time
 
 WARMUP, TIMED, QUAL, SPLIT = 6, 60, 20, 10
 ROT_TIMED = 30
-CFG_TIMED = 30
-OPT_TIMED = 30
+CFG_TIMED = 20           # cut from 30 for the time of the tools and gpu_tests phases
+OPT_TIMED = 20
 CONFIGS = ("euroc_vio.yaml", "euroc_vo_dynamic.yaml", "euroc_vo_adaptive.yaml",
            "4seasons.yaml", "tum_vi.yaml")
 KF_TRANSLATION_M = 0.05   # the bench's keyframe translation threshold
@@ -2544,26 +2581,62 @@ def dist_inputs(dev):
     return runs
 
 
-def dist_drive(step, make_state, rig, frames, bufs):
+def dist_drive(step, make_state, rig, frames, bufs, compiled=False):
     """Every frame of a run, synchronized after each: per-frame records
     (T_W_B (16), n_tracked, n_alive, ba_success, pose_ok, is_keyframe),
-    the ms of the frames after DIST_WARMUP, and the final state."""
+    the ms of the frames after DIST_WARMUP, and the final state.
+    `compiled`: a compiled step, every call after the first under
+    torch.cuda.set_sync_debug_mode("error") (GraphWatch); then a fourth
+    result: per frame, its variant keys and the device ms of its segment K
+    (the keyframe stage) on frames with a window solve, else None (CUDA
+    events around the variant's run in place, as graph_split)."""
     import torch
 
     state = make_state()
-    rec, ms = [], []
+    rec, ms, variants, k_ms = [], [], [], []
+    watch = GraphWatch(step if compiled else None)
+    marks = {}
+    if compiled:
+        run = step.graphs.run
+
+        def timed_run(key, fn):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            run(key, fn)
+            ev[1].record()
+            marks[key] = ev
+        step.graphs.run = timed_run
     torch.cuda.synchronize()
-    for k, (a, b) in enumerate(frames):
-        t = time.perf_counter()
-        state, out = step(state, rig, a, b, *(bufs[k] if bufs else ()))
-        torch.cuda.synchronize()
-        if k >= DIST_WARMUP:
-            ms.append((time.perf_counter() - t) * 1e3)
-        rec.append(torch.cat([out.T_W_B.reshape(-1).double(), torch.stack([
-            out.n_tracked.double(), out.n_alive.double(),
-            out.ba_success.double(), out.pose_ok.double(),
-            out.is_keyframe.double()])]))
-    return torch.stack(rec).cpu().numpy(), ms, state
+    try:
+        for k, (a, b) in enumerate(frames):
+            marks.clear()
+            t = time.perf_counter()
+            state, out = watch.call(k, step, state, rig, a, b,
+                                    *(bufs[k] if bufs else ()))
+            torch.cuda.synchronize()
+            if k >= DIST_WARMUP:
+                ms.append((time.perf_counter() - t) * 1e3)
+            rec.append(torch.cat([out.T_W_B.reshape(-1).double(),
+                                  torch.stack([
+                                      out.n_tracked.double(),
+                                      out.n_alive.double(),
+                                      out.ba_success.double(),
+                                      out.pose_ok.double(),
+                                      out.is_keyframe.double()])]))
+            if compiled:
+                solve = [ev for key, ev in marks.items()
+                         if key[0] in ("opt", "kf") and len(key) == 3
+                         and key[2]]
+                variants.append(repr(step.last_variants))
+                k_ms.append(solve[0][0].elapsed_time(solve[0][1])
+                            if solve else None)
+    finally:
+        if compiled:
+            del step.graphs.run
+    r = torch.stack(rec).cpu().numpy()
+    if compiled:
+        return r, ms, state, (variants, k_ms)
+    return r, ms, state
 
 
 def dist_step_summary(vio, r, ms, state, truth, window, solves):
@@ -2588,8 +2661,13 @@ def dist_step_summary(vio, r, ms, state, truth, window, solves):
                                 / max(np.linalg.norm(t_truth), 1e-9)),
              "ba_fires_in_quality_pass": int(r[q, 18].sum()),
              "pose_ok": bool(r[:, 19].all())}
+    kf = r[DIST_WARMUP:, 20] > 0.5
     s.update(frames=n, frames_per_s=len(ms) / (sum(ms) / 1e3),
              blocked_median_ms=statistics.median(ms),
+             kf_blocked_median_ms=statistics.median(
+                 [m for m, f in zip(ms, kf) if f] or [float("nan")]),
+             non_kf_blocked_median_ms=statistics.median(
+                 [m for m, f in zip(ms, kf) if not f] or [float("nan")]),
              keyframes=int(r[:, 20].sum()), solves=len(solves["ms"]),
              solves_ok=int(r[:, 18].sum()),
              solve_ms_median=(statistics.median(solves["ms"])
@@ -2634,12 +2712,18 @@ def timed_solvers(module, names, mesh=None):
     return rec, restore
 
 
-def dist_rank(mesh):
+def dist_rank(mesh, reuse=None):
     """One rank of the dist phase (run by parallel.dryrun.run_ranks): the
     solvers, then the step runs — rank 0 first drives the single-device
-    steps alone, then every rank the distributed ones (K1 launches counted
-    over the distributed runs only). Returns the summary (JSON) and the
-    distributed runs' per-frame poses."""
+    steps alone (eager, then compiled where the mesh can capture; `reuse`:
+    (records, summary) of an earlier run's eager single-device runs on the
+    same card, which then stand in for them), then every rank the
+    distributed ones (K1 launches counted over the distributed runs only),
+    then, where the mesh's collectives can be captured (NCCL), the
+    compiled distributed ones on the same frames; elsewhere (gloo on the
+    card) the compiled makers must refuse. Returns the summary (JSON), the
+    distributed runs' per-frame poses, the compiled runs' variant keys and
+    rank 0's single-device records (single.*, single_vel.*)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2647,8 +2731,7 @@ def dist_rank(mesh):
     from rsvio_tpu_torch.models import estimator as est
     from rsvio_tpu_torch.models import estimator_vio as ev
     from rsvio_tpu_torch.parallel import dist_ba, dist_vio_ba
-    from rsvio_tpu_torch.parallel.dist_estimator import (
-        make_distributed_estimator_step, make_distributed_vio_estimator_step)
+    from rsvio_tpu_torch.parallel import dist_estimator as de
     from rsvio_tpu_torch.utils.precision import pin_fp32
 
     pin_fp32()
@@ -2657,8 +2740,10 @@ def dist_rank(mesh):
                "collective": dist_collective_ms(mesh),
                "solvers": dist_solvers(mesh)}
     runs = dist_inputs(dev)
-    single = {}
-    if mesh.rank == 0:
+    single, out = {}, {}
+    if reuse is not None:
+        single, summary["single"] = reuse
+    elif mesh.rank == 0:
         for name, (vio, cfg, rig, frames, bufs, make_state, truth) in \
                 runs.items():
             mod, names = ((vio_ba, ("solve_vio_ba", "solve_vio_ba_marginalized"))
@@ -2668,16 +2753,35 @@ def dist_rank(mesh):
             try:
                 step = (ev.make_vio_estimator_step(cfg) if vio
                         else est.make_estimator_step(cfg))
-                single[name] = dist_drive(step, make_state, rig, frames, bufs)
+                r, ms, state = dist_drive(step, make_state, rig, frames, bufs)
             finally:
                 restore()
             window = (cfg.base if vio else cfg).window_size
             summary.setdefault("single", {})[name] = dist_step_summary(
-                vio, *single[name][:2], single[name][2], truth, window, rec)
+                vio, r, ms, state, truth, window, rec)
+            vel = state.vel.double().cpu().numpy() if vio else None
+            single[name] = (r, vel)
+            out[f"single.{name}"] = r
+            if vio:
+                out[f"single_vel.{name}"] = vel
+            if mesh.capturable:
+                step = (ev.make_compiled_vio_estimator_step(cfg, device=dev)
+                        if vio else est.make_compiled_estimator_step(
+                            cfg, device=dev))
+                r, ms, state, (_, k_ms) = dist_drive(
+                    step, make_state, rig, frames, bufs, compiled=True)
+                g = {k: v for k, v in dist_step_summary(
+                    vio, r, ms, state, truth, window,
+                    {"ms": [], "calls": [], "bytes": []}).items()
+                    if k in ("frames_per_s", "blocked_median_ms",
+                             "kf_blocked_median_ms",
+                             "non_kf_blocked_median_ms")}
+                g["k_solve_device_ms_median"] = k_solve_median(k_ms)
+                summary.setdefault("single_graph", {})[name] = g
     dist.barrier()
-    out = {}
     reset_counts()
     n_frames = 0
+    eager = {}
     for name, (vio, cfg, rig, frames, bufs, make_state, truth) in \
             runs.items():
         mod, names = ((dist_vio_ba, ("solve_vio_ba_distributed",
@@ -2686,96 +2790,241 @@ def dist_rank(mesh):
                           "solve_ba_distributed",
                           "solve_ba_marginalized_distributed")))
         rec, restore = timed_solvers(mod, names, mesh)
+        c0 = dict(mesh.counts)
         try:
-            step = (make_distributed_vio_estimator_step(cfg, mesh) if vio
-                    else make_distributed_estimator_step(cfg, mesh))
+            step = (de.make_distributed_vio_estimator_step(cfg, mesh) if vio
+                    else de.make_distributed_estimator_step(cfg, mesh))
             r, ms, state = dist_drive(step, make_state, rig, frames, bufs)
         finally:
             restore()
         n_frames += len(frames)
         window = (cfg.base if vio else cfg).window_size
         s = dist_step_summary(vio, r, ms, state, truth, window, rec)
+        s["run_counts"] = {k: mesh.counts[k] - c0[k] for k in c0}
+        eager[name] = (r, state, s)
         if name in single:
-            rs, _, st_s = single[name]
+            rs, vel_s = single[name]
             s["max_dT_vs_single"] = float(np.abs(r[:, :16] - rs[:, :16])
                                           .max())
             s["keyframes_equal"] = bool((r[:, 20] == rs[:, 20]).all())
             if vio:
-                s["max_dvel_vs_single"] = float(
-                    (state.vel - st_s.vel).abs().max())
+                s["max_dvel_vs_single"] = float(np.abs(
+                    state.vel.double().cpu().numpy() - vel_s).max())
         summary.setdefault("dist", {})[name] = s
         out[f"poses.{name}"] = r[:, :16]
     summary["launches"] = counts()
     summary["frames"] = n_frames
     summary["mesh_counts"] = dict(mesh.counts)
+    if mesh.capturable:
+        reset_counts()
+        for name, (vio, cfg, rig, frames, bufs, make_state, truth) in \
+                runs.items():
+            summary.setdefault("graph", {})[name], out[
+                f"poses.graph.{name}"], out[f"variants.{name}"] = \
+                dist_graph_run(mesh, name, runs[name], eager[name])
+        summary["graph_launches"] = counts()
+    else:
+        # The compiled makers refuse a mesh whose collectives a CUDA graph
+        # cannot hold (gloo), before touching CUDA.
+        refused = {}
+        for vio, make in ((False, de.make_compiled_distributed_estimator_step),
+                          (True,
+                           de.make_compiled_distributed_vio_estimator_step)):
+            cfg = next(c for v, c, *_ in runs.values() if v == vio)
+            try:
+                make(cfg, mesh)
+                refused[make.__name__] = None
+            except ValueError as e:
+                refused[make.__name__] = str(e)
+        summary["graph_refused"] = refused
     out["summary"] = np.array(json.dumps(summary))
     return out
 
 
-def dist_phase():
-    """The distributed layer (module docstring, phase 12): the NCCL run at
-    one rank per card and the gloo run at 2 ranks on card 0. Returns the
-    K1 launches of both runs' distributed steps, all ranks."""
+def k_solve_median(k_ms):
+    """The median device ms of segment K on the solve frames after the
+    warm-up (dist_drive's fourth result), None without one."""
+    v = [x for x in k_ms[DIST_WARMUP:] if x is not None]
+    return statistics.median(v) if v else None
+
+
+def dist_graph_run(mesh, name, run, eager):
+    """The compiled distributed step of dist run `name` on its frames
+    (every call after the first under the sync debug mode's "error"),
+    beside the eager distributed run `eager` ((records, final state,
+    summary)): its summary (frames/s, blocked medians, K's device ms on
+    solve frames, the gaps to the eager run, the run's collective counts,
+    reads a frame, each variant's ms of first run and capture, the memory
+    its graphs and buffers hold), its per-frame poses and variant keys."""
     import numpy as np
     import torch
+    from rsvio_tpu_torch.parallel import dist_estimator as de
+
+    vio, cfg, rig, frames, bufs, make_state, truth = run
+    r_e, st_e, s_e = eager
+    pool0 = pool_bytes()
+    c0 = dict(mesh.counts)
+    t0 = time.perf_counter()
+    step = (de.make_compiled_distributed_vio_estimator_step(cfg, mesh) if vio
+            else de.make_compiled_distributed_estimator_step(cfg, mesh))
+    r, ms, state, (variants, k_ms) = dist_drive(step, make_state, rig, frames,
+                                                bufs, compiled=True)
+    window = (cfg.base if vio else cfg).window_size
+    s = dist_step_summary(vio, r, ms, state, truth, window,
+                          {"ms": [], "calls": [], "bytes": []})
+    g = {k: s[k] for k in ("frames_per_s", "blocked_median_ms",
+                           "kf_blocked_median_ms", "non_kf_blocked_median_ms",
+                           "tracked_mean", "drift_rel", "keyframes",
+                           "solves_ok")}
+    g.update(
+        eager_frames_per_s=s_e["frames_per_s"],
+        eager_blocked_median_ms=s_e["blocked_median_ms"],
+        eager_kf_blocked_median_ms=s_e["kf_blocked_median_ms"],
+        eager_solve_ms_median=s_e["solve_ms_median"],
+        speedup_fps=s["frames_per_s"] / s_e["frames_per_s"],
+        k_solve_device_ms_median=k_solve_median(k_ms),
+        k_solve_frames=sum(v is not None for v in k_ms[DIST_WARMUP:]),
+        max_pos_gap_m=float(np.abs(r[:, 3:12:4] - r_e[:, 3:12:4]).max()),
+        keyframes_equal=bool((r[:, 20] == r_e[:, 20]).all()),
+        run_counts={k: mesh.counts[k] - c0[k] for k in c0},
+        host_reads_per_frame=step.host_reads / len(frames),
+        capture_ms={variant_name(k): v
+                    for k, v in step.graphs.capture_ms.items()},
+        graphs=len(step.graphs.graphs), replays=step.graphs.replays,
+        pool_bytes=pool_bytes() - pool0, seconds=time.perf_counter() - t0)
+    if vio:
+        g["max_dvel_vs_eager"] = float((state.vel - st_e.vel).abs().max())
+        g["vel_err"] = s["vel_err"]
+    return g, r[:, :16], np.array(variants)
+
+
+def dist_phase():
+    """The distributed layer (module docstring, phase 12): the NCCL run at
+    one rank per card and the gloo run at 2 ranks on card 0, the latter
+    held to the former's single-device runs (the same frames on the same
+    card). Returns the K1 launches of both runs' eager distributed steps
+    and of the NCCL run's compiled ones, all ranks."""
+    import torch
+
+    total = graph_total = 0
+    reuse = None
+    for backend, n in (("nccl", torch.cuda.device_count()), ("gloo", 2)):
+        launches, graph_launches, reuse = dist_run(backend, n, reuse)
+        total += launches
+        graph_total += graph_launches
+    return total, graph_total
+
+
+def dist_run(backend, n, reuse=None):
+    """One run of the dist phase: `n` ranks over `backend` on the card(s),
+    checked and printed. Returns the K1 launches of its eager distributed
+    steps and of its compiled ones (all ranks) and the single-device
+    records (`reuse` when given, else rank 0's) for a later run's
+    `reuse`."""
+    import numpy as np
     from rsvio_tpu_torch.parallel import dryrun
 
-    total = 0
-    for backend, n in (("nccl", torch.cuda.device_count()), ("gloo", 2)):
-        t0 = time.perf_counter()
-        res = dryrun.run_ranks(dist_rank, n, backend=backend,
-                               devices="cuda", timeout=DIST_TIMEOUT)
-        sums = [json.loads(str(r["summary"])) for r in res]
-        tag = f"dist[{backend} x{n}]"
-        s0 = sums[0]
-        for name, e in s0["solvers"].items():
-            check(all(e["success"]), f"{tag}: solver {name} failed {e}")
-            check(e["tol_excess"] <= 0.0,
-                  f"{tag}: solver {name} poses beyond 1e-3 rel + 1e-4 abs "
-                  f"of the single-device solve: {e}")
-            if "max_dH_rel" in e:
-                check(all(e["prior_valid"]) and e["max_dH_rel"] <= 5e-3,
-                      f"{tag}: solver {name} prior: {e}")
-        for name in ("ba", "vio"):
-            per = [s0["solvers"][f"{name}@{L}"] for L in DIST_L]
-            check(len({(p["per_iteration_calls"], p["per_iteration_bytes"])
-                       for p in per}) == 1,
-                  f"{tag}: {name} all-reduce per iteration differs with L: "
-                  f"{per}")
-        for name, s in s0["dist"].items():
-            vio = "vio" in name
-            tol = DIST_VIO_TOL if vio else DIST_VO_TOL
-            check_floors(f"{tag}[{name}]", s)
-            if vio:
-                check(s["vel_err"] <= VIO_VEL_TOL,
-                      f"{tag}[{name}]: velocity error {s['vel_err']}")
-            check(s["max_dT_vs_single"] <= tol and s["keyframes_equal"],
-                  f"{tag}[{name}]: {s['max_dT_vs_single']} from the "
-                  f"single-device step (tol {tol}), keyframes equal "
-                  f"{s['keyframes_equal']}")
-            if vio:
-                check(s["max_dvel_vs_single"] <= tol,
-                      f"{tag}[{name}]: velocity {s['max_dvel_vs_single']} "
-                      f"from the single-device step")
-            check(s["solves_ok"] >= 1, f"{tag}[{name}]: no sharded solve")
-        for r in res[1:]:
-            for k, v in res[0].items():
-                if k.startswith("poses."):
-                    check(np.array_equal(r[k], v),
-                          f"{tag}: {k} differs between ranks")
+    t0 = time.perf_counter()
+    res = dryrun.run_ranks(dist_rank, n, reuse, backend=backend,
+                           devices="cuda", timeout=DIST_TIMEOUT)
+    total = graph_total = 0
+    sums = [json.loads(str(r["summary"])) for r in res]
+    tag = f"dist[{backend} x{n}]"
+    s0 = sums[0]
+    for name, e in s0["solvers"].items():
+        check(all(e["success"]), f"{tag}: solver {name} failed {e}")
+        check(e["tol_excess"] <= 0.0,
+              f"{tag}: solver {name} poses beyond 1e-3 rel + 1e-4 abs "
+              f"of the single-device solve: {e}")
+        if "max_dH_rel" in e:
+            check(all(e["prior_valid"]) and e["max_dH_rel"] <= 5e-3,
+                  f"{tag}: solver {name} prior: {e}")
+    for name in ("ba", "vio"):
+        per = [s0["solvers"][f"{name}@{L}"] for L in DIST_L]
+        check(len({(p["per_iteration_calls"], p["per_iteration_bytes"])
+                   for p in per}) == 1,
+              f"{tag}: {name} all-reduce per iteration differs with L: "
+              f"{per}")
+    for name, s in s0["dist"].items():
+        vio = "vio" in name
+        tol = DIST_VIO_TOL if vio else DIST_VO_TOL
+        check_floors(f"{tag}[{name}]", s)
+        if vio:
+            check(s["vel_err"] <= VIO_VEL_TOL,
+                  f"{tag}[{name}]: velocity error {s['vel_err']}")
+        check(s["max_dT_vs_single"] <= tol and s["keyframes_equal"],
+              f"{tag}[{name}]: {s['max_dT_vs_single']} from the "
+              f"single-device step (tol {tol}), keyframes equal "
+              f"{s['keyframes_equal']}")
+        if vio:
+            check(s["max_dvel_vs_single"] <= tol,
+                  f"{tag}[{name}]: velocity {s['max_dvel_vs_single']} "
+                  f"from the single-device step")
+        check(s["solves_ok"] >= 1, f"{tag}[{name}]: no sharded solve")
+    for r in res[1:]:
+        for k, v in res[0].items():
+            if k.startswith(("poses.", "variants.")):
+                check(np.array_equal(r[k], v),
+                      f"{tag}: {k} differs between ranks")
+    for s in sums:
+        check(s["launches"] == {"klt_bidir": 2 * s["frames"],
+                                "klt_bidir_rot": 0, "klt_level": 0},
+              f"{tag}: rank {s['rank']} launches {s['launches']} for "
+              f"{s['frames']} frames")
+        total += s["launches"]["klt_bidir"]
+    line = {
+        "ranks": n, "seconds": time.perf_counter() - t0,
+        "collective": [s["collective"] for s in sums],
+        "solvers": s0["solvers"], "single": s0["single"],
+        "dist": {f"rank{s['rank']}": s["dist"] for s in sums},
+        "launches": [s["launches"] for s in sums],
+        "mesh_counts": [s["mesh_counts"] for s in sums]}
+    if backend == "nccl":
+        graph_total += dist_graph_checks(tag, sums)
+        line.update(single_graph=s0["single_graph"],
+                    graph={f"rank{s['rank']}": s["graph"] for s in sums},
+                    graph_launches=[s["graph_launches"] for s in sums])
+    else:
         for s in sums:
-            check(s["launches"] == {"klt_bidir": 2 * s["frames"],
-                                    "klt_bidir_rot": 0, "klt_level": 0},
-                  f"{tag}: rank {s['rank']} launches {s['launches']} for "
-                  f"{s['frames']} frames")
-            total += s["launches"]["klt_bidir"]
-        print(f"{tag}: " + json.dumps({
-            "ranks": n, "seconds": time.perf_counter() - t0,
-            "collective": [s["collective"] for s in sums],
-            "solvers": s0["solvers"], "single": s0["single"],
-            "dist": {f"rank{s['rank']}": s["dist"] for s in sums},
-            "launches": [s["launches"] for s in sums],
-            "mesh_counts": [s["mesh_counts"] for s in sums]}), flush=True)
+            check(all(s["graph_refused"].values()),
+                  f"{tag}: a compiled maker did not refuse gloo: "
+                  f"{s['graph_refused']}")
+        line["graph_refused"] = s0["graph_refused"]
+    print(f"{tag}: " + json.dumps(line), flush=True)
+    reuse = reuse or ({name: (res[0][f"single.{name}"],
+                              res[0].get(f"single_vel.{name}"))
+                       for name in s0["single"]}, s0["single"])
+    return total, graph_total, reuse
+
+
+def dist_graph_checks(tag, sums):
+    """The compiled distributed runs' checks (module docstring, phase 12);
+    returns their K1 launches, all ranks."""
+    total = 0
+    for s in sums:
+        for name, g in s["graph"].items():
+            t = f"{tag}[graph {name}] rank {s['rank']}"
+            e = s["dist"][name]
+            check(g["max_pos_gap_m"] <= GRAPH_POSE_TOL
+                  and g["keyframes_equal"],
+                  f"{t}: positions {g['max_pos_gap_m']} m from the eager "
+                  f"distributed step's, keyframes equal "
+                  f"{g['keyframes_equal']}")
+            if "max_dvel_vs_eager" in g:
+                check(g["max_dvel_vs_eager"] <= GRAPH_POSE_TOL,
+                      f"{t}: velocity {g['max_dvel_vs_eager']} from eager")
+            check(g["run_counts"] == e["run_counts"],
+                  f"{t}: mesh counts {g['run_counts']}, eager "
+                  f"{e['run_counts']}")
+            check(g["host_reads_per_frame"] == 1.0,
+                  f"{t}: {g['host_reads_per_frame']} blocking reads a frame")
+            check(g["solves_ok"] >= 1, f"{t}: no sharded solve")
+        frames = s["frames"]
+        check(s["graph_launches"] == {"klt_bidir": 2 * frames,
+                                      "klt_bidir_rot": 0, "klt_level": 0},
+              f"{tag}: rank {s['rank']} compiled launches "
+              f"{s['graph_launches']} for {frames} frames")
+        total += s["graph_launches"]["klt_bidir"]
     return total
 
 
@@ -2814,8 +3063,9 @@ def eval_sequence(name, dev):
 def eval_phase(dev):
     """The evaluation harness on the card (module docstring, phase 13):
     utils.evaluation.run_synthetic_sequence on the accuracy matrix's
-    scenes and profiles at full width. Returns the K1 launches of its
-    runs."""
+    scenes and profiles at full width, each run eager (with the probe)
+    and compiled (without). Returns the K1 launches of the eager runs and
+    of the compiled ones."""
     import numpy as np
     import torch
     from rsvio_tpu_torch.tools import accuracy_matrix as am
@@ -2824,7 +3074,7 @@ def eval_phase(dev):
     _, _, levels, cell, margin = am.geometry(752)
     profiles = dict(am.CONFIGS)
     scenes = {}
-    total = 0
+    total = graph_total = 0
     for scene_name, cname in EVAL_RUNS:
         if scene_name not in scenes:
             t0 = time.perf_counter()
@@ -2838,14 +3088,28 @@ def eval_phase(dev):
         tag = f"eval[{scene_name} x {cname}]"
         probe = {}
         t0 = time.perf_counter()
+        kw = dict(capacity=256, window=10, levels=levels, cell_size=cell,
+                  detect_margin=margin, init_gyro=gyro if vio else None,
+                  init_accel=accel if vio else None, device=dev, **ckw)
         reset_counts()
-        res = evaluation.run_synthetic_sequence(
-            seq, scene, capacity=256, window=10, levels=levels,
-            cell_size=cell, detect_margin=margin,
-            init_gyro=gyro if vio else None,
-            init_accel=accel if vio else None, device=dev, probe=probe,
-            **ckw)
+        res = evaluation.run_synthetic_sequence(seq, scene, probe=probe,
+                                                **kw)
         c = counts()
+        # The same frames through the compiled harness (no probe).
+        t1 = time.perf_counter()
+        reset_counts()
+        res_g = evaluation.run_synthetic_sequence(seq, scene, **kw)
+        cg = counts()
+        check(cg == {"klt_bidir": 2 * EVAL_FRAMES, "klt_bidir_rot": 0,
+                     "klt_level": 0},
+              f"{tag}: compiled launches {cg} for {EVAL_FRAMES} frames")
+        gap = float(np.abs(res_g.positions - res.positions).max())
+        check(gap <= GRAPH_POSE_TOL,
+              f"{tag}: the compiled harness's positions {gap} m from the "
+              f"eager harness's")
+        graph = {"fps": res_g.fps, "max_pos_gap_m": gap,
+                 "ate_rmse_m": res_g.ate_rmse, "drift_pct": res_g.drift_pct,
+                 "launches": cg, "seconds": time.perf_counter() - t1}
         st = res.stats
         n = EVAL_FRAMES
         check(c == {"klt_bidir": 2 * n, "klt_bidir_rot": 0, "klt_level": 0},
@@ -2856,6 +3120,7 @@ def eval_phase(dev):
         inl = st["n_ransac_inliers"]
         cut = (inl > 0) & (inl < st["n_pnp_candidates"])
         rec = {"frames": n, "seconds": time.perf_counter() - t0,
+               "graph": graph,
                "ate_rmse_m": res.ate_rmse, "drift_pct": res.drift_pct,
                "fps": res.fps, "tracked_mean": res.n_tracked_mean,
                "ba_success_rate": res.ba_success_rate, "skip": res.skip,
@@ -2884,8 +3149,9 @@ def eval_phase(dev):
                   f"nothing: {rec}")
             rec["jax_full_run"] = EVAL_JAX_VIO_ADAPT
         total += c["klt_bidir"]
+        graph_total += cg["klt_bidir"]
         print(f"{tag}: " + json.dumps(rec), flush=True)
-    return total
+    return total, graph_total
 
 
 def dist_profile(dev, runs=5):
@@ -2940,6 +3206,64 @@ def dist_profile(dev, runs=5):
                   flush=True)
     finally:
         dist.destroy_process_group()
+
+
+TOOLS_CALLS = 5          # bench_solvers' -n (the tool's default is 20)
+GPU_TESTS = ("test_compiled_dist_step_on_cuda_matches_eager",
+             "test_compiled_function_on_cuda_matches_eager",
+             "test_eval_harness_compiled_on_cuda_matches_eager")
+GPU_TESTS_CASES = 7      # their parametrized cases
+GPU_TESTS_TIMEOUT = 300.0
+
+
+def tools_phase():
+    """tools.bench_solvers and tools.profile_components (module docstring,
+    phase 15): each once compiled, the tools' default, and once with
+    --eager, in this call. Returns the K1 launches of the compiled
+    run."""
+    from rsvio_tpu_torch.tools import bench_solvers, profile_components
+
+    out, launches = {}, 0
+    for kind, extra in (("graph", []), ("eager", ["--eager"])):
+        reset_counts()
+        solvers = bench_solvers.main(["-n", str(TOOLS_CALLS)] + extra)
+        comp = profile_components.main(extra)
+        c = counts()
+        check(comp["klt_bidir_20_launches"] == 1
+              and comp["klt_bidir_8_launches"] == 1
+              and c == {"klt_bidir": 14, "klt_bidir_rot": 0, "klt_level": 0},
+              f"tools[{kind}]: K1 launches {c}, a call {comp}")
+        out[kind] = {"solvers_ms": solvers, "components_ms": comp,
+                     "launches": c}
+        if kind == "graph":
+            launches = c["klt_bidir"]
+    out["eager_over_graph"] = {
+        k: out["eager"][part][k] / out["graph"][part][k]
+        for part in ("solvers_ms", "components_ms")
+        for k in out["graph"][part] if not k.endswith("_launches")}
+    print("tools: " + json.dumps(out), flush=True)
+    return launches
+
+
+def gpu_tests_phase():
+    """The gpu tests of the compiled distributed steps, the compiled
+    function and the compiled harness (module docstring, phase 16), in a
+    pytest process of their own."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-o",
+           "addopts=-q", "-p", "no:cacheprovider",
+           os.path.join("tests", "test_torch_gpu.py"), "-k",
+           " or ".join(GPU_TESTS)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=GPU_TESTS_TIMEOUT)
+    lines = r.stdout.strip().splitlines()
+    print("gpu_tests: " + json.dumps({
+        "rc": r.returncode, "summary": lines[-1] if lines else "",
+        "seconds": time.perf_counter() - t0}), flush=True)
+    check(r.returncode == 0 and lines
+          and re.search(rf"\b{GPU_TESTS_CASES} passed\b", lines[-1])
+          and "skipped" not in lines[-1],
+          "gpu_tests: " + "\n".join(lines[-30:]) + r.stderr[-2000:])
 
 
 def kernel_entry(name, launches, rows, extra=None):
@@ -3001,6 +3325,14 @@ def main():
     if "--dist-profile" in sys.argv[1:]:
         dist_profile(dev)
         return 0
+    if "--dist-nccl" in sys.argv[1:]:
+        # One rank per card on every card of the machine (on four cards:
+        # the compiled distributed steps across real NCCL ranks).
+        from rsvio_tpu_torch.parallel import dryrun
+        n = torch.cuda.device_count()
+        dryrun.dryrun_multichip(n, backend="nccl")
+        dist_run("nccl", n)
+        return 0
 
     seconds = {}
 
@@ -3023,8 +3355,10 @@ def main():
     vio_launches = phase("vio", vio_phase, tex, dev)
     graph_launches = phase("graph", graph_phase, dev)
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
-    dist_launches = phase("dist", dist_phase)
-    eval_launches = phase("eval", eval_phase, dev)
+    dist_launches, dist_graph_launches = phase("dist", dist_phase)
+    eval_launches, eval_graph_launches = phase("eval", eval_phase, dev)
+    tools_launches = phase("tools", tools_phase)
+    phase("gpu_tests", gpu_tests_phase)
     print("phase_seconds: " + json.dumps(seconds), flush=True)
 
     print(json.dumps({"kernels": [
@@ -3040,7 +3374,10 @@ def main():
                       "launches_vio": vio_launches,
                       "launches_cli": cli_launches,
                       "launches_dist": dist_launches,
+                      "launches_dist_graph": dist_graph_launches,
                       "launches_eval": eval_launches,
+                      "launches_eval_graph": eval_graph_launches,
+                      "launches_tools": tools_launches,
                       "launches_graph": graph_launches["klt_bidir"],
                       **fusion}),
         kernel_entry("klt_bidir_rot", rot_launches, [kres["temporal_rot"]],

@@ -812,11 +812,14 @@ def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
     produced the next prior). `window_solvers`: the window solve's
     functions, an object with ``solve_ba`` and ``solve_ba_marginalized``
     of models.ba's signatures (default models.ba itself;
-    parallel.dist_estimator passes the landmark-sharded ones).
+    parallel.dist_estimator passes the landmark-sharded ones), and
+    optionally ``counters``, the Python counters their calls advance
+    (utils.graphs.Graphs; the compiled step carries them over replays).
 
     The step runs the segments eagerly and reads its branches from the
     device: two blocking reads a frame, three on a keyframe
-    (make_compiled_estimator_step mirrors them on the host instead)."""
+    (make_compiled_estimator_step mirrors them on the host instead). Its
+    `segments` attribute holds them: the compiled step replays these."""
     pin_fp32()
     sg = _build_segments(_build_stages(cfg, probe, window_solvers))
 
@@ -827,6 +830,7 @@ def make_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
         seg = sg.motion(state, rig, img0, img1, ready, gumbel)
         return sg.opt(state, rig, seg, *read_opt_branch(cfg, state, seg.mo))
 
+    step.segments = sg
     return step
 
 
@@ -902,16 +906,20 @@ class GraphStep:
     On CUDA a failed capture or replay raises utils.graphs.GraphError; the
     step never falls back to eager execution. On the CPU (device="cpu") the
     same segments and buffers run eagerly. `graphs` holds each variant's
-    capture time; `last_variants` the variant keys of the last call."""
+    capture time; `last_variants` the variant keys of the last call.
+    `counters`: Python counters the window solvers advance (a mesh's
+    collective counts), carried over replays with the kernels' launches."""
 
-    def __init__(self, cfg: EstimatorConfig, draws, device, maker: str):
+    def __init__(self, cfg: EstimatorConfig, draws, device, maker: str,
+                 counters=()):
         self.cfg, self.draws = cfg, draws
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"{maker}: no CUDA device is available; pass "
                                "device='cpu' to run the segments eagerly on "
                                "the CPU")
-        self.graphs = graph_mod.Graphs(self.device, KERNEL_COUNTERS)
+        self.graphs = graph_mod.Graphs(self.device,
+                                       KERNEL_COUNTERS + tuple(counters))
         self.host_reads = 0
         self.mirror = None
         self.last_variants = None
@@ -1011,11 +1019,14 @@ class CompiledStep(GraphStep):
     the RANSAC draws' seed follow — and reads only is_kf from the device
     (GraphStep). The mirror is read from the state once whenever the step
     is handed a state it did not return last (a first call, a checkpoint's
-    state): one more blocking read then."""
+    state): one more blocking read then. `segments`: the eager step's
+    (make_estimator_step's `segments`)."""
 
-    def __init__(self, cfg: EstimatorConfig, draws, device):
-        super().__init__(cfg, draws, device, "make_compiled_estimator_step")
-        self._sg = _build_segments(_build_stages(cfg))
+    def __init__(self, cfg: EstimatorConfig, draws, device,
+                 segments: Segments, counters=()):
+        super().__init__(cfg, draws, device, "make_compiled_estimator_step",
+                         counters)
+        self._sg = segments
 
     def _motion(self, ready: bool):
         gate = ready and self.cfg.pnp.ransac_hypotheses > 0
@@ -1053,12 +1064,14 @@ class CompiledStep(GraphStep):
 
 
 def make_compiled_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
-                                 device="cuda", probe=None):
+                                 device="cuda", probe=None,
+                                 window_solvers=None):
     """The per-frame step (state, rig, img0, img1) -> (state, FrameOutput)
     as CUDA graphs of its segments (CompiledStep): the counterpart of the
     JAX package's ``jax.jit(step)``, with make_estimator_step's results.
-    Pins full fp32 and validates the config. `draws` as in
-    make_estimator_step (called with the CPU as its device). `device`:
+    Pins full fp32 and validates the config. `draws` and `window_solvers`
+    as in make_estimator_step (`draws` is called with the CPU as its
+    device; the solvers' `counters` are carried over replays). `device`:
     "cuda" (the default; raises without a card) or "cpu", where the same
     segments run eagerly. `probe` is refused (ValueError): its counts are
     Python dict updates, which a replay would not run; use
@@ -1066,5 +1079,6 @@ def make_compiled_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,
     if probe is not None:
         raise ValueError("probe counts cannot be replayed from a CUDA graph; "
                          "use make_estimator_step(cfg, probe=...)")
-    pin_fp32()
-    return CompiledStep(cfg, draws, device)
+    eager = make_estimator_step(cfg, draws, window_solvers=window_solvers)
+    return CompiledStep(cfg, draws, device, eager.segments,
+                        getattr(window_solvers, "counters", ()))

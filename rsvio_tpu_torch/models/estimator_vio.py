@@ -739,7 +739,8 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
     produced the next prior). `window_solvers`: an object with
     ``solve_vio_ba`` and ``solve_vio_ba_marginalized`` of models.vio_ba's
     signatures (default models.vio_ba; parallel.dist_estimator passes the
-    landmark-sharded ones).
+    landmark-sharded ones), and optionally ``counters`` as in
+    make_estimator_step.
 
     The step runs the segments eagerly and reads its branches from the
     device: one read for pnp_ready (with the RANSAC gate, together with
@@ -773,6 +774,7 @@ def make_vio_estimator_step(cfg: VIOEstimatorConfig, draws=gumbel_draws,
         return sg.opt(state, rig, seg, prep,
                       bool(est_mod.full_now(b, state.kf_count)))
 
+    step.segments = sg
     return step
 
 
@@ -808,13 +810,15 @@ class CompiledVIOStep(est_mod.GraphStep):
     graphs: host arrays through one persistent pinned staging buffer (the
     frame's one blocking read orders its reuse); device tensors with one
     more blocking read a frame, of their valid count and bound (counted in
-    `host_reads`)."""
+    `host_reads`). `segments`: the eager step's (make_vio_estimator_step's
+    `segments`); `counters` as in GraphStep."""
 
-    def __init__(self, cfg: VIOEstimatorConfig, draws, device):
+    def __init__(self, cfg: VIOEstimatorConfig, draws, device,
+                 segments: VIOSegments, counters=()):
         super().__init__(cfg.base, draws, device,
-                         "make_compiled_vio_estimator_step")
+                         "make_compiled_vio_estimator_step", counters)
         self.vcfg = cfg
-        self._sg = _build_vio_segments(cfg, _build_vio_stages(cfg))
+        self._sg = segments
         self._imu = self._imu_host = self._prep = None
 
     def _stage_imu(self, gyro, accel, dts, imu_mask):
@@ -904,20 +908,22 @@ class CompiledVIOStep(est_mod.GraphStep):
 
 def make_compiled_vio_estimator_step(cfg: VIOEstimatorConfig,
                                      draws=gumbel_draws, device="cuda",
-                                     probe=None):
+                                     probe=None, window_solvers=None):
     """The per-frame VIO step (state, rig, img0, img1, gyro, accel, dts,
     imu_mask) -> (state, FrameOutput) as CUDA graphs of its segments
     (CompiledVIOStep): the counterpart of the JAX package's jitted
     make_vio_estimator_step, with the eager step's results. Pins full fp32
-    and validates the config. `draws` as in make_vio_estimator_step
-    (called with the CPU as its device). `device`: "cuda" (the default;
-    raises without a card) or "cpu", where the same segments run eagerly.
-    `probe` is refused (ValueError): its counts are Python dict updates,
-    which a replay would not run; use make_vio_estimator_step for it. The
-    sharded window solvers (parallel.dist_estimator) stay on the eager
-    step."""
+    and validates the config. `draws` and `window_solvers` as in
+    make_vio_estimator_step (`draws` is called with the CPU as its device;
+    the solvers' `counters` are carried over replays: the sharded solvers
+    of parallel.dist_estimator run inside the graphs). `device`: "cuda"
+    (the default; raises without a card) or "cpu", where the same segments
+    run eagerly. `probe` is refused (ValueError): its counts are Python
+    dict updates, which a replay would not run; use
+    make_vio_estimator_step for it."""
     if probe is not None:
         raise ValueError("probe counts cannot be replayed from a CUDA graph; "
                          "use make_vio_estimator_step(cfg, probe=...)")
-    pin_fp32()
-    return CompiledVIOStep(cfg, draws, device)
+    eager = make_vio_estimator_step(cfg, draws, window_solvers=window_solvers)
+    return CompiledVIOStep(cfg, draws, device, eager.segments,
+                           getattr(window_solvers, "counters", ()))

@@ -4,7 +4,9 @@ processes over a file store) and ``dryrun_multichip``.
 Port of ``dryrun_multichip`` in __graft_entry__.py: at that function's tiny
 sizes, the four sharded window solvers and both distributed steps (until
 a sharded solve fires) on an n-rank mesh, each held to the single-device
-result, with the lines JAX prints.
+result, with the lines JAX prints. Where the mesh's collectives can be
+captured (NCCL), the compiled distributed steps too, held to the eager
+distributed steps within 1e-5 m.
 
     python -m rsvio_tpu_torch.parallel.dryrun 2 [--backend gloo|nccl]
         [--devices cuda|cpu]
@@ -18,8 +20,10 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -38,8 +42,14 @@ def _rank_main(fn, rank, world_size, init_method, backend, devices, threads,
         mesh = make_mesh(world_size, devices, backend)
         result = fn(mesh, *args)
         np.savez(out_path, **(result or {}))
-    finally:
-        dist.destroy_process_group()
+    except Exception:
+        # Exit at once, without tearing the group down: the other ranks
+        # may wait in a collective this rank will never join (run_ranks
+        # then ends them), and a teardown could wait on them.
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
 
 
 def run_ranks(fn, world_size: int, *args, backend=None, devices=None,
@@ -251,8 +261,10 @@ def _dryrun_rank(mesh):
     from ..models import imu as imu_mod
     from ..models.marginalization import empty_prior
     from . import dist_ba, dist_vio_ba
-    from .dist_estimator import (make_distributed_estimator_step,
-                                 make_distributed_vio_estimator_step)
+    from .dist_estimator import (
+        make_compiled_distributed_estimator_step,
+        make_compiled_distributed_vio_estimator_step,
+        make_distributed_estimator_step, make_distributed_vio_estimator_step)
 
     n, dev = mesh.size, mesh.device
 
@@ -360,6 +372,35 @@ def _dryrun_rank(mesh):
               f"single-device step: max|dT|={gap}")
         say(f"full distributed {name} step ok (sharded window solve inside "
             f"the frame loop), max|dT| vs single-device {gap:.2e}")
+    if not mesh.capturable:
+        return {"counts": np.array([mesh.counts[k]
+                                    for k in sorted(mesh.counts)])}
+    # The compiled distributed steps (CUDA graphs, the solve's collectives
+    # captured) against the eager distributed steps on the same frames.
+    for name, compiled, eager, state, imu_args in (
+            ("estimator", make_compiled_distributed_estimator_step(cfg, mesh),
+             make_distributed_estimator_step(cfg, mesh),
+             est.init_state(cfg, device=dev), ()),
+            ("VIO estimator", make_compiled_distributed_vio_estimator_step(
+                vcfg_full, mesh), make_distributed_vio_estimator_step(
+                    vcfg_full, mesh),
+             ev.init_vio_state(vcfg_full, device=dev), imu)):
+        s_c = s_e = state
+        saw, gap = False, 0.0
+        for k in range(6):
+            imgs = (torch.roll(img, -k, dims=1),
+                    torch.roll(img, -(k + 4), dims=1))
+            s_c, o_c = compiled(s_c, rig, *imgs, *imu_args)
+            s_e, o_e = eager(s_e, rig, *imgs, *imu_args)
+            gap = max(gap, _max_diff(o_c.T_W_B, o_e.T_W_B))
+            saw = saw or bool(o_c.ba_success)
+        check(saw, f"compiled distributed {name} never reached a sharded "
+              f"solve")
+        check(gap <= 1e-5, f"compiled distributed {name} diverges from the "
+              f"eager distributed step: max|dT|={gap}")
+        say(f"compiled distributed {name} step ok ({len(compiled.graphs.graphs)}"
+            f" graphs, {compiled.graphs.replays} replays), max|dT| vs eager "
+            f"{gap:.2e}")
     return {"counts": np.array([mesh.counts[k] for k in sorted(mesh.counts)])}
 
 

@@ -12,7 +12,9 @@ tensors' shapes, so counting costs no device sync.
 
 Backends: NCCL with one rank per card, gloo for several ranks on one card
 (it stages CUDA tensors through the host: a device sync per collective) or
-on the CPU.
+on the CPU. NCCL's collectives can be captured in a CUDA graph
+(``Mesh.capturable``) once the communicator exists (``Mesh.warm_up``);
+gloo's cannot.
 """
 
 from __future__ import annotations
@@ -55,6 +57,28 @@ class Mesh:
         self.backend = backend
         self.counts = {}
         self.reset_counts()
+        self._warm = False
+
+    @property
+    def capturable(self) -> bool:
+        """Whether the collectives can run inside a CUDA graph: NCCL on a
+        CUDA device, not gloo (it stages through the host and syncs)."""
+        return self.backend == "nccl" and self.device.type == "cuda"
+
+    def warm_up(self) -> None:
+        """One eager all-reduce and all-gather outside any capture, on every
+        rank, once: NCCL makes its communicator at the first collective,
+        which a capture (or the sync debug mode of a graph's first run)
+        would refuse. Not counted in `counts`."""
+        if self._warm:
+            return
+        x = torch.zeros(1, device=self.device)
+        dist.all_reduce(x, group=self.group)
+        dist.all_gather([torch.empty_like(x) for _ in range(self.size)], x,
+                        group=self.group)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warm = True
 
     def reset_counts(self) -> None:
         self.counts.update(all_reduce_calls=0, all_reduce_bytes=0,

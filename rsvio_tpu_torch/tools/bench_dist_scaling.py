@@ -9,7 +9,11 @@ Port of tools/bench_dist_scaling.py over rsvio_tpu_torch.parallel:
    efficiency against the 1-rank run. NCCL at one rank per card where the
    host has a card for every rank; otherwise gloo, with the ranks sharing
    one card (each collective staged through the host) or on the CPU —
-   then the table is not multi-card scaling, and says so.
+   then the table is not multi-card scaling, and says so. Over NCCL the
+   solve is timed compiled, as JAX's tool times its jitted solve: a CUDA
+   graph with the collectives captured (utils.graphs.compile_function);
+   gloo's collectives cannot be captured, so there the eager solve is
+   timed. Each row's ``route`` says which ("graph" or "eager").
 2. The all-reduce payload of one LM iteration, from the mesh's own counts
    (``Mesh.counts``: a full-budget solve less one of half the budget),
    at two landmark counts: O(W^2 * 36) bytes, independent of L.
@@ -44,12 +48,25 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _solve_counts(mesh, prob, cfg):
-    """(result, all-reduce calls, bytes) of one sharded solve."""
+def _solver(mesh, cfg):
+    """The sharded solve of `cfg` as a function of the window problem:
+    compiled (a CUDA graph, the mesh's counts carried over replays) where
+    the mesh's collectives can be captured, else eager."""
     from ..parallel import dist_ba
+    from ..utils.graphs import compile_function
 
+    def solve(*prob):
+        return dist_ba.solve_ba_distributed(mesh, *prob, cfg)
+    if not mesh.capturable:
+        return solve
+    mesh.warm_up()
+    return compile_function(solve, mesh.device, (mesh.counts,))
+
+
+def _solve_counts(mesh, solve, prob):
+    """(result, all-reduce calls, bytes) of one call of solve(*prob)."""
     c0 = dict(mesh.counts)
-    res = dist_ba.solve_ba_distributed(mesh, *prob, cfg)
+    res = solve(*prob)
     _sync(mesh.device)
     return (res, mesh.counts["all_reduce_calls"] - c0["all_reduce_calls"],
             mesh.counts["all_reduce_bytes"] - c0["all_reduce_bytes"])
@@ -67,24 +84,27 @@ def scaling_rank(mesh, per_device, W, iters, repeats, comm_landmarks):
                        param_tol=0.0)
     L = per_device * mesh.size
     prob = dryrun.window_problem(W, L, seed=100 + mesh.size, device=dev)
-    res, _, _ = _solve_counts(mesh, prob, cfg)      # warm-up
+    solve, solve_half = _solver(mesh, cfg), _solver(mesh, half)
+    res, _, _ = _solve_counts(mesh, solve, prob)      # warm-up (capture)
     if not bool(res.success):
         raise RuntimeError(f"ranks={mesh.size} L={L}: the solve failed")
+    its = int(res.iterations)
     times = []
     for _ in range(repeats):
         _sync(dev)
         t0 = time.perf_counter()
-        _solve_counts(mesh, prob, cfg)
+        _solve_counts(mesh, solve, prob)
         times.append(time.perf_counter() - t0)
     comm = []
     for Lc in comm_landmarks:
         p = dryrun.window_problem(W, Lc, seed=7, device=dev)
-        _, calls, nbytes = _solve_counts(mesh, p, cfg)
-        _, calls_h, nbytes_h = _solve_counts(mesh, p, half)
+        _, calls, nbytes = _solve_counts(mesh, solve, p)
+        _, calls_h, nbytes_h = _solve_counts(mesh, solve_half, p)
         n = iters - iters // 2
         comm.append([Lc, (calls - calls_h) / n, (nbytes - nbytes_h) / n])
-    return {"solve_s": statistics.median(times),
-            "iterations": int(res.iterations), "comm": np.array(comm)}
+    return {"solve_s": statistics.median(times), "iterations": its,
+            "route": "graph" if mesh.capturable else "eager",
+            "comm": np.array(comm)}
 
 
 def choose_backend(devices: str, max_ranks: int):
@@ -135,13 +155,15 @@ def main(argv=None):
         t_med = max(float(r["solve_s"]) for r in out)   # the slowest rank
         its = int(out[0]["iterations"])
         t_ref = t_med if t_ref is None else t_ref
-        rows.append(dict(devices=nd, backend=backend, landmarks=L,
+        rows.append(dict(devices=nd, backend=backend,
+                         route=str(out[0]["route"]), landmarks=L,
                          per_device=args.per_device, iterations=its,
                          solve_ms=round(t_med * 1e3, 2),
                          ms_per_iter=round(t_med * 1e3 / max(its, 1), 3),
                          weak_efficiency=round(t_ref / t_med, 3)))
-        print(f"ranks={nd} L={L} iters={its} solve={t_med * 1e3:.1f} ms  "
-              f"weak-eff={t_ref / t_med:.2f}", file=sys.stderr)
+        print(f"ranks={nd} L={L} iters={its} solve={t_med * 1e3:.1f} ms "
+              f"({rows[-1]['route']})  weak-eff={t_ref / t_med:.2f}",
+              file=sys.stderr)
         for Lc, calls, nbytes in out[0]["comm"].reshape(-1, 3):
             comm.append(dict(devices=nd, landmarks=int(Lc),
                              allreduce_bytes=int(nbytes),
@@ -151,12 +173,15 @@ def main(argv=None):
                   f"an LM iteration (claim: reduced-system psum "
                   f"{predicted_bytes(W)} B, L-independent)", file=sys.stderr)
 
+    note += ("; the solve timed as a CUDA graph" if backend == "nccl"
+             else "; the solve timed eager (gloo cannot be captured)")
     print(f"\n{note}")
-    print("\n| ranks | landmarks | solve ms | ms/iter | weak eff |")
-    print("|---|---|---|---|---|")
+    print("\n| ranks | landmarks | solve ms | ms/iter | weak eff | route |")
+    print("|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['devices']} | {r['landmarks']} | {r['solve_ms']} | "
-              f"{r['ms_per_iter']} | {r['weak_efficiency']} |")
+              f"{r['ms_per_iter']} | {r['weak_efficiency']} | "
+              f"{r['route']} |")
     print("\n| landmarks | all-reduces an LM iteration | bytes an LM "
           "iteration |")
     print("|---|---|---|")

@@ -4,12 +4,16 @@ and marginalized VIO BA at production shapes (W=10, L=256).
 Port of tools/bench_solvers.py: the same problem from the same numpy
 draws. Each solver runs its full LM iteration budget (cost and parameter
 tolerances 0), so the numbers are iteration cost, not convergence speed.
-Each call is timed on its own: on CUDA between events recorded before and
-after it, synchronized after each call; on the CPU by the host clock. The
-line gives the median over -n calls after a warm-up.
+The solvers are timed compiled, as JAX's tool times its jitted solvers:
+each a CUDA graph (utils.graphs.compile_function; the call copies the
+inputs into the graph's buffers and replays it); ``--eager`` times the
+eager calls instead, every kernel launched from the host. Each call is
+timed on its own: on CUDA between events recorded before and after it,
+synchronized after each call; on the CPU by the host clock. The line
+gives the median over -n calls after a warm-up (which captures the graph).
 
     python -m rsvio_tpu_torch.tools.bench_solvers [--device cuda|cpu] [-n N]
-        [--lm L] [--window W]
+        [--lm L] [--window W] [--eager]
 """
 
 from __future__ import annotations
@@ -124,6 +128,7 @@ def main(argv=None):
     from ..cli.run import resolve_device
     from ..models import ba, vio_ba
     from ..models.marginalization import empty_prior
+    from ..utils.graphs import compile_function
     from ..utils.precision import pin_fp32
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -132,6 +137,8 @@ def main(argv=None):
     ap.add_argument("--lm", type=int, default=N_LM, help="landmark slots")
     ap.add_argument("--window", type=int, default=W_KF,
                     help="keyframe window")
+    ap.add_argument("--eager", action="store_true",
+                    help="time the eager calls, not the compiled ones")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     pin_fp32()
@@ -139,6 +146,8 @@ def main(argv=None):
 
     print("device:", torch.cuda.get_device_name(dev) if dev.type == "cuda"
           else "cpu")
+    print("calls:", "eager" if args.eager
+          else "compiled (utils.graphs.compile_function)")
     (state0, T_C_B, lms0, obs, mask, lm_valid, pre,
      pre_valid) = make_problem(window=W, n_lm=L, device=dev)
 
@@ -148,23 +157,25 @@ def main(argv=None):
     evict = torch.ones((), dtype=torch.bool, device=dev)
     prior6 = empty_prior(W, 6, device=dev)
     prior15 = empty_prior(W, 15, device=dev)
+    vo = (state0.T_W_B, T_C_B, lms0, obs, mask, lm_valid)
+    vio = (state0, T_C_B, lms0, obs, mask, lm_valid, pre, pre_valid)
     runs = [
-        ("BA", cfg_ba.max_iterations, lambda: ba.solve_ba(
-            state0.T_W_B, T_C_B, lms0, obs, mask, lm_valid, cfg_ba)),
-        ("BA+marg", cfg_ba.max_iterations, lambda: ba.solve_ba_marginalized(
-            state0.T_W_B, T_C_B, lms0, obs, mask, lm_valid, prior6, evict,
-            cfg_ba)),
-        ("VIO BA", cfg_vio.max_iterations, lambda: vio_ba.solve_vio_ba(
-            state0, T_C_B, lms0, obs, mask, lm_valid, pre, pre_valid,
-            cfg_vio)),
+        ("BA", cfg_ba.max_iterations,
+         lambda *a: ba.solve_ba(*a, cfg_ba), vo),
+        ("BA+marg", cfg_ba.max_iterations,
+         lambda *a: ba.solve_ba_marginalized(*a, cfg_ba),
+         vo + (prior6, evict)),
+        ("VIO BA", cfg_vio.max_iterations,
+         lambda *a: vio_ba.solve_vio_ba(*a, cfg_vio), vio),
         ("VIO BA+marg", cfg_vio.max_iterations,
-         lambda: vio_ba.solve_vio_ba_marginalized(
-             state0, T_C_B, lms0, obs, mask, lm_valid, pre, pre_valid,
-             prior15, evict, cfg_vio)),
+         lambda *a: vio_ba.solve_vio_ba_marginalized(*a, cfg_vio),
+         vio + (prior15, evict)),
     ]
     results = {}
-    for name, its, fn in runs:
-        ms = time_calls(fn, dev, n=args.n)
+    for name, its, solve, inputs in runs:
+        if not args.eager:
+            solve = compile_function(solve, dev)
+        ms = time_calls(lambda: solve(*inputs), dev, n=args.n)
         results[name] = ms
         label = f"{name} {W}x{L} ({its} it):"
         print(f"{label:<29}{ms:8.2f} ms", flush=True)

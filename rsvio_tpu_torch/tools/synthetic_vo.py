@@ -6,6 +6,9 @@ estimator (tracking -> triangulation -> PnP -> BA), and compares the
 recovered trajectory to ground truth. The texture is 96x96 uniform noise
 upscaled bicubically to 1536x1536 (``torch.nn.functional.interpolate``,
 a = -0.75 as OpenCV's INTER_CUBIC) and sampled bilinearly on the device.
+The step is the compiled one (models.estimator.make_compiled_estimator_step,
+CUDA graphs of its segments), the example's jitted step; on the CPU the
+same segments run eagerly.
 
 Usage: python -m rsvio_tpu_torch.tools.synthetic_vo [--frames N]
     [--step M] [--device cuda|cpu]
@@ -84,7 +87,7 @@ def main(argv=None):
         rotation_threshold=0.05,
         image_shape=(H, W),
     )
-    step = est.make_estimator_step(cfg)
+    step = est.make_compiled_estimator_step(cfg, device=dev)
     state = est.init_state(cfg, device=dev)
 
     print("running...")

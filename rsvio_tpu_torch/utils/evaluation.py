@@ -13,6 +13,11 @@ What differs from the JAX module:
     and ``probe`` to the step (see models.estimator.make_estimator_step).
     Frames may be device tensors (data.synthetic renders there) or numpy
     arrays, which go up once each.
+  * It drives the compiled step (CUDA graphs of the step's segments,
+    models.estimator.make_compiled_estimator_step and its VIO
+    counterpart), as JAX's harness drives its jitted step; on the CPU the
+    same segments run eagerly. With a ``probe`` it drives the eager step,
+    since a graph's replay cannot update a Python dict.
   * A frame's outputs come back in one device-to-host copy (JAX reads four
     scalars a frame, and each would be a sync here). ``RunResult`` keeps
     those reads per frame in ``stats``, beside JAX's fields.
@@ -142,8 +147,10 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
 
     For VIO, pass init_gyro/init_accel (e.g. static_init_imu) to engage the
     gravity-aligned bootstrap; otherwise the state starts at identity.
-    `draws` (the RANSAC gate's Gumbel draws; default the step's own) and
-    `probe` go to the step."""
+    `draws` (the RANSAC gate's Gumbel draws; default the step's own) goes
+    to the step. Without a `probe` the step is the compiled one (its
+    results are the eager step's); with one, a dict the step adds its
+    option counts to, the eager step runs."""
     from ..models import ba as ba_mod
     from ..models import estimator as est
     from ..models import pnp as pnp_mod
@@ -208,8 +215,8 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
     rig = est.make_rig(params, params,
                        torch.eye(4, dtype=torch.float32, device=dev), T_B_Cr)
     rig = type(rig)(*(x.to(dtype) for x in rig))
-    step_kw = dict(probe=probe, **({} if draws is None else
-                                   dict(draws=draws)))
+    step_kw = ({} if draws is None else dict(draws=draws))
+    step_kw.update(dict(device=dev) if probe is None else dict(probe=probe))
 
     frames = seq["frames"]
     n = len(frames)
@@ -234,7 +241,8 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
                 bias_accel_weight_desert=float(_env(
                     "RSVIO_BIAS_AW_DESERT", bias_accel_weight_desert)),
                 min_lm_span=int(_env("RSVIO_LM_SPAN", 1))))
-        step = ev.make_vio_estimator_step(cfg, **step_kw)
+        step = (ev.make_compiled_vio_estimator_step if probe is None
+                else ev.make_vio_estimator_step)(cfg, **step_kw)
         if init_gyro is not None:
             state = ev.initialize_vio_state(cfg, init_gyro, init_accel,
                                             dtype=dtype, device=dev)
@@ -242,7 +250,8 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
             state = ev.init_vio_state(cfg, dtype=dtype, device=dev)
         imu = frame_imu_buffers(seq, imu_buf)
     else:
-        step = est.make_estimator_step(base, **step_kw)
+        step = (est.make_compiled_estimator_step if probe is None
+                else est.make_estimator_step)(base, **step_kw)
         state = est.init_state(base, dtype=dtype, device=dev)
 
     def upload(img):
@@ -260,7 +269,9 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
         if use_vio:
             args = args + imu[k]
         state, out = step(*args)
-        # One device-to-host copy a frame: position and the scalars.
+        # One device-to-host copy a frame: position and the scalars (read
+        # before the next-but-one call, which overwrites the compiled
+        # step's outputs).
         reads[k] = torch.cat([
             out.T_W_B[:3, 3].to(torch.float64),
             torch.stack([getattr(out, f).to(torch.float64)

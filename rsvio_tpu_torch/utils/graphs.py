@@ -20,10 +20,16 @@ runs each variant as a ``torch.cuda.CUDAGraph``:
   one). A capture or replay that fails raises ``GraphError``: nothing falls
   back to running eagerly.
 
-Kernel launch counters kept in Python (the ``launches`` attributes of the
-kernel wrappers) do not run on a replay. A capture records how far it
-moved each counter, puts the counters back (the capture launched nothing)
-and every replay advances them by that amount.
+- ``compile_function``: the counterpart of ``jax.jit`` for a function
+  with fixed shapes and no host branch (a window solver, the pyramid
+  build, a KLT call): its arguments go into a slab, one ``Graphs`` variant
+  per argument layout.
+
+Counters kept in Python (the ``launches`` attributes of the kernel
+wrappers, the collective counts of ``parallel.mesh.Mesh.counts``) do not
+run on a replay. A capture records how far it moved each counter, puts the
+counters back (the capture launched nothing) and every replay advances
+them by that amount.
 
 On the CPU, which a caller asks for explicitly, a variant runs eagerly on
 every use over the same slabs: the same data path without capture.
@@ -118,23 +124,41 @@ def _numel(shape):
     return n
 
 
+def _get(slot):
+    o, k = slot
+    return o[k] if isinstance(o, dict) else getattr(o, k)
+
+
+def _set(slot, value):
+    o, k = slot
+    if isinstance(o, dict):
+        o[k] = value
+    else:
+        setattr(o, k, value)
+
+
 class Graphs:
     """The captured variants of a step's segments, by key, on `device`.
 
-    counters: (object, attribute) pairs of Python launch counters to carry
-    over replays (see the module docstring)."""
+    counters: Python counters to carry over replays (see the module
+    docstring), each an (object, attribute) pair or a dict (every item of
+    it)."""
 
     def __init__(self, device, counters=()):
         self.device = torch.device(device)
         self.counters = tuple(counters)
-        self.graphs = {}        # key -> (CUDAGraph, counter deltas)
+        self.graphs = {}        # key -> (CUDAGraph, [(slot, delta)])
         self.capture_ms = {}    # key -> ms of the first run and the capture
         self.uses = {}          # key -> runs (the first one and replays)
         self.replays = 0
         self._stream = None
 
-    def _counts(self):
-        return [getattr(o, a) for o, a in self.counters]
+    def _slots(self):
+        """(container, key) of every counter, a dict's items one by one."""
+        slots = []
+        for c in self.counters:
+            slots += [(c, k) for k in c] if isinstance(c, dict) else [c]
+        return slots
 
     def run(self, key, fn):
         """Run variant `key` (`fn()`, which reads and writes slabs): replay
@@ -152,8 +176,8 @@ class Graphs:
             graph.replay()
         except Exception as e:
             raise GraphError(f"replay of {key!r} failed: {e}") from e
-        for (o, a), d in zip(self.counters, delta):
-            setattr(o, a, getattr(o, a) + d)
+        for slot, d in delta:
+            _set(slot, _get(slot) + d)
         self.replays += 1
 
     def _first_use(self, key, fn):
@@ -170,7 +194,8 @@ class Graphs:
             finally:
                 torch.cuda.set_sync_debug_mode(prev)
         cur.wait_stream(side)
-        before = self._counts()
+        slots = self._slots()
+        before = [_get(slot) for slot in slots]
         graph = torch.cuda.CUDAGraph()
         # The capture itself fails on any host sync; the debug mode is off
         # for torch.cuda.graph's own synchronize and cache release.
@@ -185,8 +210,67 @@ class Graphs:
             raise GraphError(f"capture of {key!r} failed: {e}") from e
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-            delta = [b - a for a, b in zip(before, self._counts())]
-            for (o, a), v in zip(self.counters, before):
-                setattr(o, a, v)
+            delta = [(slot, _get(slot) - b) for slot, b in zip(slots, before)
+                     if _get(slot) != b]
+            for slot, b in zip(slots, before):
+                _set(slot, b)
         self.graphs[key] = (graph, delta)
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
+
+
+def _layout(tree):
+    """A hashable description of a pytree: its structure and its tensors'
+    dtypes, shapes and devices."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return (tree.dtype, tuple(tree.shape), tree.device)
+    if isinstance(tree, dict):
+        return (dict, tuple((k, _layout(v)) for k, v in tree.items()))
+    if isinstance(tree, tuple):
+        return (type(tree), tuple(_layout(v) for v in tree))
+    raise TypeError(f"not a tensor pytree leaf: {type(tree).__name__}")
+
+
+class CompiledFunction:
+    """`fn` over fixed buffers, one CUDA graph per argument layout
+    (compile_function builds it; see there). `graphs` holds the variants,
+    keyed 0, 1, ... in the order their layouts first came."""
+
+    def __init__(self, fn, device, counters=()):
+        self.fn = fn
+        self.graphs = Graphs(device, counters)
+        self._io = {}    # layout -> [variant key, input Slab, output Slab]
+
+    def __call__(self, *args):
+        layout = _layout(args)
+        if layout not in self._io:
+            self._io[layout] = [len(self._io), Slab(args, self.graphs.device),
+                                None]
+        io = self._io[layout]
+        key, inp = io[0], io[1]
+        inp.load(args)
+
+        def run():
+            res = self.fn(*inp.tree)
+            if io[2] is None:
+                io[2] = Slab(res, self.graphs.device)
+            io[2].load(res)
+        self.graphs.run(key, run)
+        return io[2].tree
+
+
+def compile_function(fn, device, counters=()) -> CompiledFunction:
+    """`fn` compiled: the port's ``jax.jit`` for a function with fixed
+    shapes and no host branch (a window solver, the pyramid build, a KLT
+    call). Called with the arguments of `fn`, pytrees of tensors on
+    `device` (bind every other argument, a config say, into `fn` first);
+    they are copied into a fixed buffer, one per argument layout (structure,
+    dtypes, shapes), and each layout's first call runs `fn` eagerly and
+    captures it as a CUDA graph (utils.graphs.Graphs: a hidden host sync or
+    a failed capture raises GraphError), later calls replay it. The result,
+    a pytree of tensors, comes back in that layout's output buffer, which
+    the next call of the same layout overwrites: copy what must live
+    longer. `counters` as in Graphs. On the CPU `fn` runs eagerly on every
+    call, over the same buffers."""
+    return CompiledFunction(fn, device, counters)

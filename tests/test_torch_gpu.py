@@ -63,6 +63,15 @@ adaptive weights): poses within 1e-5 m, 2 K1 launches and one blocking read
 a frame, and with the IMU buffer as CUDA tensors the same poses and one
 more read a frame; the compiled mono step (make_compiled_mono_step)
 against the eager pyramid build and step: the counts equal, no read.
+
+The last eager paths on the compiled route: the compiled distributed steps
+at world size 1 over NCCL in this process (VO, VO with marginalization,
+VIO) against the eager distributed steps (poses within 1e-5 m, equal
+collective counts, one read a frame); utils.graphs.compile_function on
+solve_ba and solve_vio_ba against the eager calls; and the evaluation
+harness without a probe (the compiled step) against the same call with a
+probe (the eager step), positions within 1e-5 m. The harness's own host
+syncs are counted around the compiled step it now takes.
 """
 
 import glob
@@ -1629,7 +1638,8 @@ def test_run_synthetic_sequence_reads_once_a_frame(dev, monkeypatch):
 
     scene = syn.scene_depth_structured(H=120, W=188, device=dev)
     seq = syn.generate_sequence(scene, syn.traj_6dof(), 7, fps=10.0)
-    make_step = est.make_estimator_step
+    # Without a probe the harness drives the compiled step.
+    make_step = est.make_compiled_estimator_step
     step_syncs = []
 
     def counted_step(ecfg, **kw):
@@ -1641,7 +1651,7 @@ def test_run_synthetic_sequence_reads_once_a_frame(dev, monkeypatch):
             return out
         return f
 
-    monkeypatch.setattr(est, "make_estimator_step", counted_step)
+    monkeypatch.setattr(est, "make_compiled_estimator_step", counted_step)
 
     def run(n):
         part = dict(seq, frames=seq["frames"][:n], ts=seq["ts"][:n],
@@ -1660,3 +1670,123 @@ def test_run_synthetic_sequence_reads_once_a_frame(dev, monkeypatch):
     added = {k: v for k, v in added.items() if v}
     assert list(added.values()) == [2] and \
         next(iter(added)).startswith("evaluation.py:"), (added, own[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("run", ["vo", "vo_marg", "vio"])
+def test_compiled_dist_step_on_cuda_matches_eager(nccl_mesh, run):
+    """The compiled distributed steps (CUDA graphs, the sharded solve's NCCL
+    collectives captured) at world size 1 in this process against the
+    eager distributed steps over 30 frames of the small scene (VIO: the
+    hover IMU buffer): flags equal, poses within 1e-5 m, the mesh's
+    collective counts of the run equal, exactly 2 K1 launches and one
+    blocking read a frame (every call after the first under
+    torch.cuda.set_sync_debug_mode("error"))."""
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.parallel import dist_estimator as de
+
+    dev = nccl_mesh.device
+    base, frames, shape = _small_scene(30)
+    vio = run == "vio"
+    cfg = base._replace(use_marginalization=run == "vo_marg")
+    if vio:
+        cfg = _vio_cfg(cfg)
+        makers = (de.make_distributed_vio_estimator_step,
+                  de.make_compiled_distributed_vio_estimator_step)
+    else:
+        makers = (de.make_distributed_estimator_step,
+                  de.make_compiled_distributed_estimator_step)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    imu = _hover_imu() if vio else ()
+    outs, counts = {}, {}
+    for name, make in zip(("eager", "compiled"), makers):
+        step = make(cfg, nccl_mesh)
+        state = (ev.init_vio_state(cfg, device=dev) if vio
+                 else est.init_state(cfg, device=dev))
+        torch.cuda.synchronize()
+        kk.klt_bidir.launches = 0
+        c0 = dict(nccl_mesh.counts)
+        outs[name] = []
+        for k, (a, b) in enumerate(frames_d):
+            if name == "compiled" and k > 0:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, out = step(state, rig, a, b, *imu)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            outs[name].append(est.FrameOutput(*(t.clone() for t in out)))
+        assert kk.klt_bidir.launches == 2 * len(frames), name
+        counts[name] = {k: nccl_mesh.counts[k] - c0[k] for k in c0}
+    assert step.host_reads == len(frames)
+    assert counts["compiled"] == counts["eager"]
+    assert counts["compiled"]["all_reduce_calls"] > 0
+    for k, (oe, oc) in enumerate(zip(outs["eager"], outs["compiled"])):
+        for f in ("is_keyframe", "pnp_success", "ba_success", "n_tracked",
+                  "n_landmarks", "n_alive"):
+            assert int(getattr(oe, f)) == int(getattr(oc, f)), (k, f)
+        gap = float((oe.T_W_B - oc.T_W_B)[:3, 3].abs().max())
+        assert gap <= 1e-5, (k, gap)
+    assert any(bool(o.ba_success) for o in outs["compiled"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["solve_ba", "solve_vio_ba"])
+def test_compiled_function_on_cuda_matches_eager(dev, name):
+    """utils.graphs.compile_function on the card: solve_ba and solve_vio_ba
+    (W=10, L=256, dryrun's windows) as CUDA graphs against the eager calls,
+    poses and landmarks within 1e-5 (the same kernels in the same order),
+    every replay under torch.cuda.set_sync_debug_mode("error"), one graph
+    for two calls of one layout."""
+    from rsvio_tpu_torch.models import vio_ba
+    from rsvio_tpu_torch.parallel import dryrun
+    from rsvio_tpu_torch.utils.graphs import compile_function
+
+    if name == "solve_ba":
+        fn, args = ba_mod.solve_ba, dryrun.window_problem(10, 256, seed=1,
+                                                          device=dev)
+    else:
+        fn, args = vio_ba.solve_vio_ba, dryrun.vio_window_problem(
+            10, 256, seed=1, device=dev)
+    want = fn(*args)
+    cf = compile_function(fn, dev)
+    for k in range(3):
+        if k > 0:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cf(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pose = (lambda r: r.state.T_W_B) if name == "solve_vio_ba" \
+            else (lambda r: r.T_W_B)
+        assert float((pose(got) - pose(want)).abs().max()) <= 1e-5, k
+        assert float((got.landmarks - want.landmarks).abs().max()) <= 1e-5
+        assert bool(got.success) == bool(want.success)
+    assert len(cf.graphs.graphs) == 1 and cf.graphs.replays == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("profile", ["vo_fifo", "vio_fifo"])
+def test_eval_harness_compiled_on_cuda_matches_eager(dev, profile):
+    """utils.evaluation.run_synthetic_sequence on the card without a probe
+    (the compiled step) against the same call with a probe (the eager step)
+    on the same 14 frames: positions within 1e-5 m, the per-frame
+    statistics equal, exactly 2 K1 launches a frame each."""
+    from rsvio_tpu_torch.utils import evaluation
+    vio = profile == "vio_fifo"
+    scene, traj, seq = _eval_sequence(14, vio)
+    kw = dict(EVAL_SMALL, use_vio=vio)
+    if vio:
+        kw["init_gyro"], kw["init_accel"] = evaluation.static_init_imu(traj)
+    res = {}
+    for name, probe in (("compiled", None), ("eager", {})):
+        kk.klt_bidir.launches = 0
+        res[name] = evaluation.run_synthetic_sequence(
+            seq, scene, device=dev, probe=probe, **kw)
+        assert kk.klt_bidir.launches == 2 * 14, name
+    assert float(np.abs(res["compiled"].positions
+                        - res["eager"].positions).max()) <= 1e-5
+    for f in ("n_tracked", "is_keyframe", "ba_success", "pnp_success"):
+        np.testing.assert_array_equal(res["compiled"].stats[f],
+                                      res["eager"].stats[f])
+    assert res["compiled"].ba_success_rate > 0

@@ -140,7 +140,8 @@ def hover_imu(S=10):
 
 def run_steps(step, vio: bool, cfg, frames):
     """Per-frame T_W_B, is_keyframe, ba_success and the final velocity of
-    `step` over `frames` ((N, 2, H, W) array)."""
+    `step` over `frames` ((N, 2, H, W) array); a compiled step's outputs
+    are copied out before its next-but-one call overwrites them."""
     from rsvio_tpu_torch.models import estimator as est
     from rsvio_tpu_torch.models import estimator_vio as ev
     rig = step_rig()
@@ -150,7 +151,7 @@ def run_steps(step, vio: bool, cfg, frames):
     T, kf, ba_ok = [], [], []
     for a, b in torch.from_numpy(frames):
         state, out = step(state, rig, a, b, *imu)
-        T.append(out.T_W_B.numpy())
+        T.append(out.T_W_B.numpy().copy())
         kf.append(bool(out.is_keyframe))
         ba_ok.append(bool(out.ba_success))
     return {"T_W_B": np.stack(T), "is_keyframe": np.array(kf),
@@ -181,6 +182,44 @@ def step_cases(mesh, path, runs):
                                   torch.tensor(3 + mesh.rank))
     out["packed"] = np.concatenate([a.numpy(), [float(b)]])
     out["packed_dtypes"] = np.array([str(a.dtype), str(b.dtype)])
+    return out
+
+
+def compiled_step_cases(mesh, path, runs):
+    """The eager and the compiled distributed steps over the frames of
+    `path` for each (name, use_marg, vio, n_frames) of `runs`, under
+    name.eager.* and name.compiled.*: run_steps' records, the mesh's count
+    increments over the run (``counts``, in sorted key order), and for the
+    compiled step its blocking reads and each frame's variant keys."""
+    from rsvio_tpu_torch.parallel.dist_estimator import (
+        make_compiled_distributed_estimator_step,
+        make_compiled_distributed_vio_estimator_step,
+        make_distributed_estimator_step, make_distributed_vio_estimator_step)
+    with np.load(path) as z:
+        frames = z["frames"]
+    makers = {False: (make_distributed_estimator_step,
+                      make_compiled_distributed_estimator_step),
+              True: (make_distributed_vio_estimator_step,
+                     make_compiled_distributed_vio_estimator_step)}
+    out = {}
+    for name, use_marg, vio, n in runs:
+        cfg = step_config(use_marg, vio)
+        for kind, make in zip(("eager", "compiled"), makers[vio]):
+            step, keys = make(cfg, mesh), []
+
+            def call(*args, step=step, keys=keys):
+                res = step(*args)
+                keys.append(repr(getattr(step, "last_variants", None)))
+                return res
+            c0 = dict(mesh.counts)
+            got = run_steps(call, vio, cfg, frames[:n])
+            got["counts"] = np.array([mesh.counts[k] - c0[k]
+                                      for k in sorted(c0)])
+            if kind == "compiled":
+                got["host_reads"] = np.array(step.host_reads)
+                got["variants"] = np.array(keys)
+            for k, v in got.items():
+                out[f"{name}.{kind}.{k}"] = v
     return out
 
 
