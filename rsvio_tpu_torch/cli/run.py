@@ -25,7 +25,10 @@ log lines, statistics and output files. What differs:
   * ``--vio``: each frame's IMU buffer (64 masked samples) is built on
     the host and handed to the VIO step as host arrays, which the step
     uploads as one pinned copy.
-  * The trace of ``--profile-dir`` is torch.profiler's (Chrome trace).
+  * The trace of ``--profile-dir`` is torch.profiler's (Chrome trace),
+    with the compiled step's spans (rsvio_tpu_torch.profiling) over their
+    CUDA calls. The ``[Timing]`` line (DEBUG, shown without ``--quiet``)
+    sums the frame's spans by name; the tracer records while it is shown.
 """
 
 from __future__ import annotations
@@ -318,6 +321,11 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
         profile_ctx = profiling.torch_trace(pcfg.profile_dir)
         profile_ctx.__enter__()
         log.info("torch.profiler trace -> %s", pcfg.profile_dir)
+    # The [Timing] line's spans are recorded while it is printed (DEBUG).
+    timing_ctx = (profiling.recording() if log.isEnabledFor(logging.DEBUG)
+                  else None)
+    if timing_ctx is not None:
+        timing_ctx.__enter__()
 
     playback = PlaybackController(pcfg.step_mode, log=log)
     if pcfg.step_mode:
@@ -454,6 +462,8 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                 break
     finally:
         frame_it.close()
+        if timing_ctx is not None:
+            timing_ctx.__exit__(None, None, None)
         if profile_ctx is not None:
             profile_ctx.__exit__(None, None, None)
 

@@ -42,11 +42,13 @@ refinement, the flow gate) is a device select. Two steps run the segments:
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import NamedTuple
 
 import torch
 
+from .. import profiling
 from ..ops import cameras, lie, projection, pyramid
 from ..ops.cuda import klt_kernel
 from ..ops.projection import triangulate_stereo
@@ -908,7 +910,24 @@ class GraphStep:
     same segments and buffers run eagerly. `graphs` holds each variant's
     capture time; `last_variants` the variant keys of the last call.
     `counters`: Python counters the window solvers advance (a mesh's
-    collective counts), carried over replays with the kernels' launches."""
+    collective counts), carried over replays with the kernels' launches.
+
+    While the tracer is on (profiling), a call records a ``step`` span
+    (attributes: ``step``, this step's `tag`; ``frame``, the mirrored frame
+    id; ``ready``, PnP runs; ``is_kf``; ``solve``) and inside it
+    ``step.load`` (the inputs, the draws and the IMU buffer into their
+    buffers), ``step.read`` (the wait for is_kf) and ``step.emit``, besides
+    utils.graphs.Graphs' ``graph.replay`` / ``graph.capture``. On CUDA it
+    records a timing event on its stream before and after each replay and
+    reads them as ``graph.device`` and ``stream.gap`` records
+    (profiling.DeviceSpans) with the variant's ``key`` and its ``layer``:
+    ``motion`` (segment M / F) or ``keyframe`` (P and K). ``graph.device``
+    includes the launch when the stream was idle at it; ``stream.gap``
+    then ends as the launch starts. They are read at the start of a later
+    call, once their end has completed. Off, none of this runs: no event is
+    made, recorded or read."""
+
+    _tags = itertools.count()
 
     def __init__(self, cfg: EstimatorConfig, draws, device, maker: str,
                  counters=()):
@@ -931,6 +950,35 @@ class GraphStep:
         self._is_kf_host = torch.zeros(1, dtype=torch.bool,
                                        pin_memory=self.pinned)
         self._event = torch.cuda.Event() if self.pinned else None
+        self.tag = next(GraphStep._tags)
+        self._dev = profiling.DeviceSpans()
+
+    def _step_span(self):
+        """The call's ``step`` span, after reading the device spans of
+        earlier calls' replays that have completed."""
+        if profiling.on():
+            self._dev.settle()
+        elif self._dev.items or self._dev.prev is not None:
+            self._dev.discard()
+        return profiling.span("step", step=self.tag)
+
+    def _segment(self, key, fn, layer: str):
+        """Run segment variant `key` (utils.graphs.Graphs.run); while the
+        tracer is on, a replay runs between two timing events on the step's
+        stream, the device spans of `layer`."""
+        if not (profiling.on() and self._replays(key)):
+            self.graphs.run(key, fn)
+            return
+        events = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        events[0].record()
+        self.graphs.run(key, fn)
+        events[1].record()
+        self._dev.replayed(events, key=key, layer=layer)
+
+    def _replays(self, key) -> bool:
+        """Whether running `key` replays a captured graph."""
+        return key in self.graphs.graphs
 
     def _load(self, state, rig, imgs) -> bool:
         """The inputs into their buffers; True when `state` was copied in
@@ -984,25 +1032,27 @@ class GraphStep:
 
     def _read_is_kf(self) -> bool:
         """The frame's one blocking read."""
-        if self._event is not None:
-            self._event.record()
-            self._event.synchronize()
-        self.host_reads += 1
-        return bool(self._is_kf_host[0])
+        with profiling.span("step.read"):
+            if self._event is not None:
+                self._event.record()
+                self._event.synchronize()
+            self.host_reads += 1
+            return bool(self._is_kf_host[0])
 
     def _emit(self):
         """The new state becomes the next input; (state, output) in the
         next output buffer."""
-        if self._out is None:
-            self._out = [graph_mod.Slab(self._new.template, self.device)
-                         for _ in range(2)]
-        self._in.buf.copy_(self._new.buf[:self._in.nbytes])
-        self._turn ^= 1
-        out = self._out[self._turn]
-        out.buf.copy_(self._new.buf)
-        new_state, frame_out = out.fresh_tree()
-        self._last = new_state
-        return new_state, frame_out
+        with profiling.span("step.emit"):
+            if self._out is None:
+                self._out = [graph_mod.Slab(self._new.template, self.device)
+                             for _ in range(2)]
+            self._in.buf.copy_(self._new.buf[:self._in.nbytes])
+            self._turn ^= 1
+            out = self._out[self._turn]
+            out.buf.copy_(self._new.buf)
+            new_state, frame_out = out.fresh_tree()
+            self._last = new_state
+            return new_state, frame_out
 
 
 class CompiledStep(GraphStep):
@@ -1046,21 +1096,28 @@ class CompiledStep(GraphStep):
 
     def __call__(self, state: EstimatorState, rig: CameraRig, img0, img1):
         cfg = self.cfg
-        if self._load(state, rig, (img0, img1)):
-            kf, fid = torch.stack([state.kf_count.to(torch.int64),
-                                   state.frame_id.to(torch.int64)]).tolist()
-            self.mirror = (fid, kf)
-        fid, kf = self.mirror
-        ready = bool(pnp_ready(cfg, kf))
-        if ready and cfg.pnp.ransac_hypotheses > 0:
-            self._stage_draws(fid)
-        self.graphs.run(("motion", ready), self._motion(ready))
-        is_kf = self._read_is_kf()
-        solve = is_kf and bool(full_now(cfg, kf))
-        self.graphs.run(("opt", is_kf, solve), self._opt(is_kf, solve))
-        self.last_variants = (("motion", ready), ("opt", is_kf, solve))
-        self.mirror = (fid + 1, min(kf + 1, cfg.window_size) if is_kf else kf)
-        return self._emit()
+        with self._step_span() as sp:
+            with profiling.span("step.load"):
+                if self._load(state, rig, (img0, img1)):
+                    kf, fid = torch.stack([
+                        state.kf_count.to(torch.int64),
+                        state.frame_id.to(torch.int64)]).tolist()
+                    self.mirror = (fid, kf)
+                fid, kf = self.mirror
+                ready = bool(pnp_ready(cfg, kf))
+                if ready and cfg.pnp.ransac_hypotheses > 0:
+                    self._stage_draws(fid)
+            sp.set(frame=fid, ready=ready)
+            self._segment(("motion", ready), self._motion(ready), "motion")
+            is_kf = self._read_is_kf()
+            solve = is_kf and bool(full_now(cfg, kf))
+            sp.set(is_kf=is_kf, solve=solve)
+            self._segment(("opt", is_kf, solve), self._opt(is_kf, solve),
+                          "keyframe")
+            self.last_variants = (("motion", ready), ("opt", is_kf, solve))
+            self.mirror = (fid + 1,
+                           min(kf + 1, cfg.window_size) if is_kf else kf)
+            return self._emit()
 
 
 def make_compiled_estimator_step(cfg: EstimatorConfig, draws=gumbel_draws,

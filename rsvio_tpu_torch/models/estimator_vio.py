@@ -50,6 +50,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..ops import lie, projection, pyramid
 from ..utils import graphs as graph_mod
 from ..utils.precision import pin_fp32
@@ -878,32 +879,38 @@ class CompiledVIOStep(est_mod.GraphStep):
     def __call__(self, state: VIOEstimatorState, rig: CameraRig, img0, img1,
                  gyro, accel, dts, imu_mask):
         b, cap = self.cfg, self.vcfg.interval_buf
-        if self._load(state, rig, (img0, img1)):
-            kf, fid, buf = torch.stack([
-                state.kf_count.to(torch.int64),
-                state.frame_id.to(torch.int64),
-                state.buf_count.to(torch.int64)]).tolist()
-            self.mirror = (fid, kf, buf)
-        n_steps, n_valid = self._stage_imu(gyro, accel, dts, imu_mask)
-        fid, kf, buf = self.mirror
-        ready = bool(est_mod.pnp_ready(b, kf))
-        if ready and b.pnp.ransac_hypotheses > 0:
-            self._stage_draws(fid)
-        front = ("front", ready, loop_bound(n_steps, self._imu.shape[0]))
-        self.graphs.run(front, self._front(ready, front[2]))
-        is_kf = self._read_is_kf()
-        n_buf = min(buf + n_valid, cap)
-        pre = None
-        solve = is_kf and bool(est_mod.full_now(b, kf))
-        if is_kf:
-            pre = ("kf_pre", loop_bound(n_buf, cap))
-            self.graphs.run(pre, self._kf_pre(pre[1]))
-        kf_key = ("kf", True, solve) if is_kf else ("kf", False)
-        self.graphs.run(kf_key, self._opt(is_kf, solve))
-        self.last_variants = (front, pre, kf_key)
-        self.mirror = (fid + 1, min(kf + 1, b.window_size) if is_kf else kf,
-                       0 if is_kf else n_buf)
-        return self._emit()
+        with self._step_span() as sp:
+            with profiling.span("step.load"):
+                if self._load(state, rig, (img0, img1)):
+                    kf, fid, buf = torch.stack([
+                        state.kf_count.to(torch.int64),
+                        state.frame_id.to(torch.int64),
+                        state.buf_count.to(torch.int64)]).tolist()
+                    self.mirror = (fid, kf, buf)
+                n_steps, n_valid = self._stage_imu(gyro, accel, dts,
+                                                   imu_mask)
+                fid, kf, buf = self.mirror
+                ready = bool(est_mod.pnp_ready(b, kf))
+                if ready and b.pnp.ransac_hypotheses > 0:
+                    self._stage_draws(fid)
+            sp.set(frame=fid, ready=ready)
+            front = ("front", ready, loop_bound(n_steps, self._imu.shape[0]))
+            self._segment(front, self._front(ready, front[2]), "motion")
+            is_kf = self._read_is_kf()
+            n_buf = min(buf + n_valid, cap)
+            pre = None
+            solve = is_kf and bool(est_mod.full_now(b, kf))
+            sp.set(is_kf=is_kf, solve=solve)
+            if is_kf:
+                pre = ("kf_pre", loop_bound(n_buf, cap))
+                self._segment(pre, self._kf_pre(pre[1]), "keyframe")
+            kf_key = ("kf", True, solve) if is_kf else ("kf", False)
+            self._segment(kf_key, self._opt(is_kf, solve), "keyframe")
+            self.last_variants = (front, pre, kf_key)
+            self.mirror = (fid + 1,
+                           min(kf + 1, b.window_size) if is_kf else kf,
+                           0 if is_kf else n_buf)
+            return self._emit()
 
 
 def make_compiled_vio_estimator_step(cfg: VIOEstimatorConfig,

@@ -31,8 +31,14 @@ run on a replay. A capture records how far it moved each counter, puts the
 counters back (the capture launched nothing) and every replay advances
 them by that amount.
 
+While the tracer is on (profiling), ``run`` records a ``graph.replay``
+span over ``CUDAGraph.replay()`` (the host's ``cudaGraphLaunch``) and a
+``graph.capture`` span over a variant's first use (its eager run and
+capture), each with the variant's key.
+
 On the CPU, which a caller asks for explicitly, a variant runs eagerly on
-every use over the same slabs: the same data path without capture.
+every use over the same slabs: the same data path without capture (its
+``graph.replay`` span covers the eager run).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ from __future__ import annotations
 import time
 
 import torch
+
+from .. import profiling
 
 ALIGN = 256   # bytes: every view of a slab starts on such a boundary
 
@@ -165,15 +173,18 @@ class Graphs:
         its graph, or on its first use run it eagerly and capture it."""
         self.uses[key] = self.uses.get(key, 0) + 1
         if self.device.type != "cuda":
-            fn()
+            with profiling.span("graph.replay", key=key):
+                fn()
             return
         entry = self.graphs.get(key)
         if entry is None:
-            self._first_use(key, fn)
+            with profiling.span("graph.capture", key=key):
+                self._first_use(key, fn)
             return
         graph, delta = entry
         try:
-            graph.replay()
+            with profiling.span("graph.replay", key=key):
+                graph.replay()
         except Exception as e:
             raise GraphError(f"replay of {key!r} failed: {e}") from e
         for slot, d in delta:

@@ -72,8 +72,15 @@ solve_ba and solve_vio_ba against the eager calls; and the evaluation
 harness without a probe (the compiled step) against the same call with a
 probe (the eager step), positions within 1e-5 m. The harness's own host
 syncs are counted around the compiled step it now takes.
+
+The tracer (rsvio_tpu_torch.profiling) on the compiled VO and VIO steps:
+the same poses bit for bit with recording on and off, one blocking read a
+frame either way under set_sync_debug_mode("error"), and one positive
+``graph.device`` record for each ``graph.replay``, from the timing events
+the step records around its replays while the tracer is on.
 """
 
+import contextlib
 import glob
 import os
 import sys
@@ -1419,6 +1426,83 @@ def test_compiled_vio_step_on_cuda_matches_eager(dev, opts):
         assert gap <= 1e-5, (k, gap)
         assert torch.equal(oc.T_W_B, od.T_W_B), k
     assert any(bool(o.ba_success) for o in outs["compiled"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vo", "vio"])
+def test_compiled_step_traced_on_cuda(dev, kind):
+    """The compiled VO and VIO steps over 20 frames of the small scene with
+    the tracer off and on (profiling.recording()), after a pass that
+    captures every variant: the poses bit for bit equal, one blocking read
+    a frame either way (every call after the first under
+    torch.cuda.set_sync_debug_mode("error"), so the spans and the device
+    events add no host sync), and with the tracer on one ``graph.device``
+    record with a positive time for each ``graph.replay`` (but the last
+    frame's, read at a next call, which does not come) and a ``stream.gap``
+    before every one but the pass's first. The pose is read after every
+    frame, as a user reads it."""
+    from rsvio_tpu_torch import profiling
+    from rsvio_tpu_torch.models import estimator_vio as ev
+
+    base, frames, shape = _small_scene(20)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    if kind == "vio":
+        cfg = _vio_cfg(base)
+        step = ev.make_compiled_vio_estimator_step(cfg, device=dev)
+        init, imu = (lambda: ev.init_vio_state(cfg, device=dev)), \
+            _hover_imu()
+    else:
+        step = est.make_compiled_estimator_step(base, device=dev)
+        init, imu = (lambda: est.init_state(base, device=dev)), ()
+    host = torch.zeros(4, 4, pin_memory=True)
+    done = torch.cuda.Event()
+    poses, reads = {}, {}
+    for name in ("capture", "off", "on"):
+        state = init()
+        torch.cuda.synchronize()
+        profiling.clear()
+        before = step.host_reads
+        poses[name] = []
+        with profiling.recording() if name == "on" else \
+                contextlib.nullcontext():
+            for k, (a, b) in enumerate(frames_d):
+                if k > 0:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, out = step(state, rig, a, b, *imu)
+                    host.copy_(out.T_W_B, non_blocking=True)
+                    done.record()
+                    done.synchronize()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                poses[name].append(host.clone())
+        reads[name] = step.host_reads - before
+        rec = profiling.records()
+        if name == "off":
+            assert not rec.spans and not rec.device
+    for k, (p_off, p_on) in enumerate(zip(poses["off"], poses["on"])):
+        assert torch.equal(p_off, p_on), k
+    assert reads["off"] == reads["on"] == len(frames)
+    names = [s.name for s in rec.spans]
+    assert names.count("step") == len(frames)
+    assert "graph.capture" not in names
+    last = len(frames) - 1
+    for k in range(len(frames)):
+        replays = [s.attrs["key"] for s in rec.spans
+                   if s.name == "graph.replay" and s.attrs["frame"] == k]
+        device = [d for d in rec.device
+                  if d.name == "graph.device" and d.attrs["frame"] == k]
+        assert len(replays) >= 2
+        assert [d.attrs["key"] for d in device] == \
+            ([] if k == last else replays), k
+        assert [d.attrs["layer"] for d in device] == \
+            ([] if k == last else
+             ["motion"] + ["keyframe"] * (len(replays) - 1)), k
+        assert all(d.ns > 0 for d in device)
+    n_device = sum(d.name == "graph.device" for d in rec.device)
+    n_gap = sum(d.name == "stream.gap" for d in rec.device)
+    assert n_gap == n_device - 1
 
 
 @pytest.mark.gpu
