@@ -24,6 +24,15 @@ them. Phases, each of which raises on failure:
                the plain version) and the kernel's device time per link;
                K2's lines also the device time of the same launch with
                every feature dead (dead_ms: the kernel's fixed cost).
+               K3 ba_assemble (the window solve's visual assembly) at the
+               cells' shapes (W=10, L=256, sqrt-weights, euroc_vio.yaml's
+               chi^2 gate on and off, float32; float64 checked, not timed)
+               against its plain composition on the same CUDA tensors
+               (2e-5 / 1e-12 of each output's largest magnitude; masks and
+               counts equal), two launches bitwise equal; device_ms, ms,
+               plain_ms and its bound (bytes in and out once, or its fp
+               operations); its launches on the main and graph paths go
+               into the kernels line.
   3. agree   — runs the port's estimator step on a small scene on the CPU
                (plain KLT) and on the GPU (kernels) and requires the poses
                to agree within 1e-3.
@@ -345,6 +354,14 @@ POS_TOL = 1e-3
 THETA_TOL = 1e-4
 ROLL = 0.0524          # rad (3 degrees) between the K1-rot pair's frames
 SOURCE = "rsvio_tpu_torch/csrc/klt_bidir.cu"
+BA_SOURCE = "rsvio_tpu_torch/csrc/ba_assemble.cu"
+BA_SHAPE = (10, 256)     # the cells' window and slots (euroc_vio.yaml)
+BA_GATE = 0.01308        # euroc_vio.yaml's solver.chi2_gate
+BA_REL = {"float32": 2e-5, "float64": 1e-12}   # tests/test_torch_gpu.py's
+# fp operations of one observation, counted from csrc/ba_assemble.cu: its
+# linearization (transforms, residual, Jacobians, Huber, weights) and one
+# set's blocks (masking, H_pl, H_ll, g_l, the pose numbers, their sums).
+BA_LIN_OPS, BA_SET_OPS = 223, 274
 REPLACES = {
     "klt_bidir": "rsvio_tpu/ops/pallas/klt_kernel.py:737",
     "klt_bidir_rot": "rsvio_tpu/ops/pallas/klt_kernel.py:737",
@@ -603,6 +620,76 @@ def kernel_phase(frames, rolled, dev):
                                  device_ms=dev_ms, dead_ms=dead_ms,
                                  plain_ms=plain_ms, bound_ms=bms,
                                  bound_by=by, **chain)
+    return results
+
+
+def ba_kernel_phase(dev):
+    """K3 (ops.cuda.ba_kernel.ba_assemble) against its plain version at the
+    cells' shapes, gate off and on (module docstring, phase 2)."""
+    import torch
+    from rsvio_tpu_torch.ops import lie
+    from rsvio_tpu_torch.ops.cuda import ba_kernel as bk
+    from rsvio_tpu_torch.parallel import dryrun
+
+    W, L = BA_SHAPE
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        T_W_B, T_C_B, lms, obs, mask, valid = dryrun.window_problem(
+            W, L, seed=1, device=dev, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        obs = obs + 1e-3 * torch.randn(obs.shape, generator=gen, device=dev,
+                                       dtype=dtype)
+        obs[4, 1, :6] += 0.05
+        w = 0.5 + torch.rand((W, L), generator=gen, device=dev, dtype=dtype)
+        T_B_W = lie.se3_inverse(T_W_B)
+        tname = str(dtype).split(".")[-1]
+        for gate in (0.0, BA_GATE):
+            args = (T_B_W, T_C_B, lms, obs, mask, w, valid, 2.0, gate)
+            out = bk.ba_assemble(*args)
+            again = bk.ba_assemble(*args)
+            torch.cuda.synchronize()
+            ref = bk.ba_assemble_reference(*args)
+            pairs = list(zip(out.blocks, ref.blocks)) + [(out.r_sq, ref.r_sq)]
+            if gate:
+                pairs += list(zip(out.gated, ref.gated))
+                for f in ("gate_mask", "gate_active", "n_obs", "n_active"):
+                    check(torch.equal(getattr(out, f), getattr(ref, f)),
+                          f"ba_assemble: {f} differs from the plain version")
+            err = max(float((a - b).abs().max())
+                      / max(float(b.abs().max()), 1e-30) for a, b in pairs)
+            name = f"ba_assemble{'_gate' if gate else ''}_{tname}"
+            check(err <= BA_REL[tname],
+                  f"{name}: max relative error {err} > {BA_REL[tname]}")
+            flat = [t for t in out if torch.is_tensor(t)] + \
+                [t for b in (out.blocks, out.gated) if b for t in b]
+            flat2 = [t for t in again if torch.is_tensor(t)] + \
+                [t for b in (again.blocks, again.gated) if b for t in b]
+            check(all(torch.equal(a, b) for a, b in zip(flat, flat2)),
+                  f"{name}: two launches differ")
+            row = dict(err=err)
+            if dtype == torch.float32:
+                sets = 2 if gate else 1
+                ops = 2 * W * L * (BA_LIN_OPS + sets * BA_SET_OPS)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in (T_B_W, T_C_B, lms, obs, mask, w,
+                                       valid, *flat))
+                t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+                row.update(
+                    ms=cuda_median_ms(lambda: bk.ba_assemble(*args)),
+                    device_ms=cuda_median_ms(lambda: bk.ba_assemble(*args),
+                                             spin=True),
+                    plain_ms=cuda_median_ms(
+                        lambda: bk.ba_assemble_reference(*args)),
+                    bound_ms=max(t_b, t_o),
+                    bound_by="bytes" if t_b >= t_o else "operations",
+                    bytes=nbytes, ops=ops)
+            print(f"kernel[{name}] W={W} L={L}: max_rel_err={err:.3g} "
+                  + " ".join(f"{k}={v:.5g}" if isinstance(v, float)
+                             else f"{k}={v}" for k, v in row.items()
+                             if k != "err")
+                  + (f" n_obs={int(out.n_obs)} n_active={int(out.n_active)}"
+                     if gate else ""), flush=True)
+            results[name] = row
     return results
 
 
@@ -3279,6 +3366,22 @@ def kernel_entry(name, launches, rows, extra=None):
     return e
 
 
+def ba_entry(bres, launches, graph_launches):
+    """K3's entry in the kernels line: the gated float32 row's numbers, the
+    ungated row's beside them, its launches on the main path (eager, gate
+    off: 21 a solve) and inside the graph phase's compiled steps."""
+    r0, r1 = bres["ba_assemble_gate_float32"], bres["ba_assemble_float32"]
+    return {"name": "ba_assemble", "route": "cuda", "source": BA_SOURCE,
+            "replaces": None, "launches": launches,
+            "launches_graph": graph_launches,
+            "max_rel_err": max(r["err"] for r in bres.values()),
+            "ms": r0["ms"], "plain_ms": r0["plain_ms"],
+            "bound_ms": r0["bound_ms"], "bound_by": r0["bound_by"],
+            "library_ms": None, "device_ms": r0["device_ms"],
+            **{f"{k}_nogate": r1[k] for k in ("ms", "device_ms", "plain_ms",
+                                              "bound_ms")}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3286,6 +3389,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rsvio_tpu_torch.data import bench_scene
+    from rsvio_tpu_torch.ops.cuda import ba_kernel as bk
     from rsvio_tpu_torch.ops.cuda import klt_kernel as kk
     from rsvio_tpu_torch.utils.precision import pin_fp32
 
@@ -3301,8 +3405,12 @@ def main():
     kernel = "?"
     for line in built.log.splitlines():
         m = re.search(r"(klt_(?:bidir|level)_kernel)ILb([01])E", line)
+        m3 = re.search(r"(ba_(?:assemble|reduce)_kernel)I([fd])E", line)
         if "Compiling entry" in line and m:
             kernel = f"{m.group(1)}<rot={m.group(2)}>"
+        elif "Compiling entry" in line and m3:
+            kernel = (f"{m3.group(1)}<"
+                      f"{'float' if m3.group(2) == 'f' else 'double'}>")
         elif "registers" in line or "spill" in line:
             print(f"ptxas: {kernel}: {line.split(':')[-1].strip()}",
                   flush=True)
@@ -3343,17 +3451,22 @@ def main():
         return out
 
     kres = phase("kernel", kernel_phase, frames, rolled, dev)
+    bres = phase("ba_kernel", ba_kernel_phase, dev)
     phase("agree", agree_phase, dev)
     level_launches, (fusion, fusion_launches) = phase(
         "track_points", track_points_phase, frames, rolled, dev)
+    ba0 = bk.ba_assemble.launches
     launches = phase("main", main_phase, frames, dev)
+    ba_launches = bk.ba_assemble.launches - ba0
     rot_launches = phase("rotation", rotation_phase, frames, dev)
     medians = {}
     mono_launches = phase("mono", mono_phase, tex, dev, medians)
     config_launches = phase("configs", configs_phase, tex, dev, medians)
     option_launches = phase("options", options_phase, tex, frames, dev)
     vio_launches = phase("vio", vio_phase, tex, dev)
+    ba0 = bk.ba_assemble.launches
     graph_launches = phase("graph", graph_phase, dev)
+    ba_graph_launches = bk.ba_assemble.launches - ba0
     cli_launches = phase("cli", cli_phase, tex, dev, medians)
     dist_launches, dist_graph_launches = phase("dist", dist_phase)
     eval_launches, eval_graph_launches = phase("eval", eval_phase, dev)
@@ -3391,6 +3504,7 @@ def main():
                          for lvl in ("level3", "level0_rot", "level3_rot")
                          for k in ("ms", "device_ms", "dead_ms", "plain_ms",
                                    "bound_ms", "max_chain", "ns_per_link")}}),
+        ba_entry(bres, ba_launches, ba_graph_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

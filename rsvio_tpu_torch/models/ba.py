@@ -2,12 +2,14 @@
 complement over landmark blocks.
 
 Port of ``solve_ba`` and its pieces from rsvio_tpu/models/ba.py: the dense
-masked observation tensor obs (W, 2, L, 2) + mask (W, 2, L), one batched
-linearization, einsum normal-equation blocks, closed-form 3x3 landmark
-inverses, a Cholesky solve of the reduced camera system with pose 0
-gauge-fixed, LM accept/reject with rollback, and per-observation weights
-(``apply_obs_weights``), and ``solve_ba_marginalized``: the same solve
-with a marginalization prior over the poses, producing the next prior.
+masked observation tensor obs (W, 2, L, 2) + mask (W, 2, L), the
+linearization and normal-equation blocks of each system with the
+per-observation weights in one ``ops.cuda.ba_kernel.ba_assemble`` call
+(the K3 kernel on the card, the plain composition on the CPU), closed-form
+3x3 landmark inverses, a Cholesky solve of the reduced camera system with
+pose 0 gauge-fixed, LM accept/reject with rollback, and
+``solve_ba_marginalized``: the same solve with a marginalization prior over
+the poses, producing the next prior.
 
 Both solvers take a ``reduce`` hook: every sum over landmarks the LM loop
 needs whole (the pose blocks and cost, the Schur system, the step's
@@ -35,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import lie
-from ..ops.projection import linearize_projection
+from ..ops.cuda.ba_kernel import ba_assemble, stereo_observability_mask
 from .marginalization import MargPrior, marginalize_oldest, prior_terms
 
 STATUS_MAX_ITERATIONS = 0
@@ -104,44 +106,6 @@ def lm_span_gate(lm_active, obs_mask, min_lm_span: int):
         span = obs_mask.any(dim=1).sum(dim=0)
         lm_active = lm_active & (span >= min_lm_span)
     return lm_active
-
-
-def apply_obs_weights(lin, w):
-    """Scale a (W,2,L) Linearization by per-slot sqrt-weights w (W,L): the
-    whitened residual and Jacobians by w, the robust cost by w^2 (the Huber
-    threshold still applies to the unweighted residual)."""
-    sw = w[:, None, :, None]                    # (W,1,L,1)
-    return lin._replace(
-        r=lin.r * sw,
-        J_pose=lin.J_pose * sw[..., None],
-        J_lm=lin.J_lm * sw[..., None],
-        cost=lin.cost * (w[:, None, :] ** 2))
-
-
-def stereo_observability_mask(obs_mask, lm_valid):
-    """Valid slot AND seen at least once in BOTH cameras across the
-    window. obs_mask (W,2,L), lm_valid (L,) -> (L,)."""
-    return (lm_valid & obs_mask[:, 0, :].any(dim=0)
-            & obs_mask[:, 1, :].any(dim=0))
-
-
-def _linearize_all(T_B_W, T_C_B, landmarks, obs, mask, delta):
-    """Linearization over (W, 2, L): T_B_W (W,4,4), T_C_B (2,4,4),
-    landmarks (L,3)."""
-    return linearize_projection(T_C_B[None, :, None], T_B_W[:, None, None],
-                                landmarks[None, None], obs, mask, delta)
-
-
-def build_normal_equations(lin):
-    """Block normal equations from a (W,2,L) Linearization: H_pp (W,6,6),
-    H_ll (L,3,3), H_pl (W,L,6,3), g_p (W,6), g_l (L,3)."""
-    Jp, Jl, r = lin.J_pose, lin.J_lm, lin.r
-    H_pp = torch.einsum("wclri,wclrj->wij", Jp, Jp)
-    H_ll = torch.einsum("wclri,wclrj->lij", Jl, Jl)
-    H_pl = torch.einsum("wclri,wclrj->wlij", Jp, Jl)
-    g_p = torch.einsum("wclri,wclr->wi", Jp, r)
-    g_l = torch.einsum("wclri,wclr->li", Jl, r)
-    return H_pp, H_ll, H_pl, g_p, g_l
 
 
 def _inv3x3(M):
@@ -286,16 +250,16 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
     T_B_W0 = lie.se3_inverse(T_W_B)
 
-    def lin_sys(T_B_W, lms, mask):
-        lin = _linearize_all(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)
-        if obs_weight is not None:
-            lin = apply_obs_weights(lin, obs_weight)
-        r_sq = (lin.r ** 2).sum(-1)
-        H_pp, H_ll, H_pl, g_p, g_l = build_normal_equations(lin)
-        H_pp, g_p, cost = reduce(H_pp, g_p, lin.cost.sum())
-        return (H_pp, H_ll, H_pl, g_p, g_l), cost, r_sq
+    def assemble(T_B_W, lms, mask, chi2_gate=0.0):
+        return ba_assemble(T_B_W, T_C_B, lms, obs, mask, obs_weight,
+                           lm_valid, cfg.huber_delta, chi2_gate)
 
-    sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0)
+    def system(b):
+        """The blocks with the pose blocks and cost reduced."""
+        H_pp, g_p, cost = reduce(b.H_pp, b.g_p, b.cost)
+        return (H_pp, b.H_ll, b.H_pl, g_p, b.g_l), cost
+
+    sys0, cost0 = system(assemble(T_B_W0, landmarks, mask0).blocks)
 
     T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
     lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
@@ -326,34 +290,34 @@ def solve_ba(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         delta_l = torch.where(ok_step, delta_l, zero)
         T_new = lie.se3_retract_split(T_B_W, delta_p)
         lms_new = lms + delta_l
-        sys_new, new_cost, r_sq_new = lin_sys(T_new, lms_new, mask)
+        asm = assemble(T_new, lms_new, mask, cfg.chi2_gate)
+        sys_new, new_cost = system(asm.blocks)
         accept = ok_step & torch.isfinite(new_cost) & (new_cost < cost)
 
         mask_n, lm_active_n = mask, lm_active
         if cfg.chi2_gate > 0.0:
             # Outlier gate after chi2_gate_iter accepted iterations, with the
             # same under-constraint guard as the reference (both branches
-            # computed, one selected). The observer's landmark gradient
-            # pieces follow the gated landmark set where the gate takes.
+            # assembled in the same pass, one selected; where the guard
+            # fails the gated branch is the ungated system). The observer's
+            # landmark gradient pieces follow the gated landmark set where
+            # the gate takes.
             do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
-            m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
-            act = stereo_observability_mask(m, lm_valid)
-            m = m & act[None, None, :]
+            m, act = asm.gate_mask, asm.gate_active
             g_l_g = torch.where(act[:, None], g_l, zero)
             n_b, n_a, gl_sq_g, gl_dl_g = reduce(
-                m.sum(), act.sum(), (g_l_g ** 2).sum(),
+                asm.n_obs, asm.n_active, (g_l_g ** 2).sum(),
                 (g_l_g * delta_l).sum())
             guard = ((n_b >= cfg.min_residual_blocks)
                      & (2 * n_b >= (W - 1) * 6 + 3 * n_a))
-            m = torch.where(guard, m, mask)
-            act = torch.where(guard, act, lm_active)
-            sys_g, cost_g, _ = lin_sys(T_new, lms_new, m)
-            mask_n = torch.where(do_gate, m, mask)
-            lm_active_n = torch.where(do_gate, act, lm_active)
-            sys_new = _sel(do_gate, sys_g, sys_new)
-            new_cost = torch.where(do_gate, cost_g, new_cost)
-            gl_sq = torch.where(do_gate & guard, gl_sq_g, gl_sq)
-            gl_dl = torch.where(do_gate & guard, gl_dl_g, gl_dl)
+            sys_g, cost_g = system(asm.gated)
+            take = do_gate & guard
+            mask_n = torch.where(take, m, mask)
+            lm_active_n = torch.where(take, act, lm_active)
+            sys_new = _sel(take, sys_g, sys_new)
+            new_cost = torch.where(take, cost_g, new_cost)
+            gl_sq = torch.where(take, gl_sq_g, gl_sq)
+            gl_dl = torch.where(take, gl_dl_g, gl_dl)
         n_acc_n = n_acc + accept.to(torch.int32)
 
         cost_conv = accept & (torch.abs(cost - new_cost)
@@ -433,21 +397,25 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
     gauge = torch.cat([torch.zeros(6, dtype=dtype, device=dev),
                        torch.ones((W - 1) * 6, dtype=dtype, device=dev)])
 
+    def assemble(T_B_W, lms, mask, chi2_gate=0.0):
+        """The visual blocks at T_B_W, and the prior's terms there."""
+        asm = ba_assemble(T_B_W, T_C_B, lms, obs, mask, obs_weight,
+                          lm_valid, cfg.huber_delta, chi2_gate)
+        return asm, prior_terms(prior, lie.se3_inverse(T_B_W), no_extra)
+
+    def system(b, lm_active, prior_t):
+        """Masked normal-equation blocks plus the prior's terms and the
+        total (visual + prior) cost."""
+        H_pp, g_p, vis = reduce(b.H_pp, b.g_p, b.cost)
+        H_add, g_add, pcost = prior_t
+        g_l_m = torch.where(lm_active[:, None], b.g_l, zero)
+        H_pl_m = torch.where(lm_active[None, :, None, None], b.H_pl, zero)
+        sys = (H_pp, b.H_ll, H_pl_m, g_p, g_l_m, H_add, g_add)
+        return sys, vis + pcost
+
     def lin_sys(T_B_W, lms, mask, lm_active):
-        """Masked normal-equation blocks plus the prior's terms, the total
-        (visual + prior) cost, and the per-observation squared whitened
-        residuals for the chi2 gate."""
-        lin = _linearize_all(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)
-        if obs_weight is not None:
-            lin = apply_obs_weights(lin, obs_weight)
-        H_pp, H_ll, H_pl, g_p, g_l = build_normal_equations(lin)
-        H_pp, g_p, vis = reduce(H_pp, g_p, lin.cost.sum())
-        H_add, g_add, pcost = prior_terms(prior, lie.se3_inverse(T_B_W),
-                                          no_extra)
-        g_l_m = torch.where(lm_active[:, None], g_l, zero)
-        H_pl_m = torch.where(lm_active[None, :, None, None], H_pl, zero)
-        sys = (H_pp, H_ll, H_pl_m, g_p, g_l_m, H_add, g_add)
-        return sys, vis + pcost, (lin.r ** 2).sum(-1)
+        asm, prior_t = assemble(T_B_W, lms, mask)
+        return system(asm.blocks, lm_active, prior_t)
 
     def damp_reduce(sys, lam, lm_active):
         """The damped, prior-augmented reduced camera system S, b = -grad,
@@ -472,7 +440,7 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         return cholesky_solve_or_nan(S, b).reshape(W, 6)
 
     T_B_W0 = lie.se3_inverse(T_W_B)
-    sys0, cost0, _ = lin_sys(T_B_W0, landmarks, mask0, lm_active0)
+    sys0, cost0 = lin_sys(T_B_W0, landmarks, mask0, lm_active0)
 
     T_B_W, lms, sys, cost = T_B_W0, landmarks, sys0, cost0
     lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
@@ -502,28 +470,26 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
         delta_l = torch.where(ok_step, delta_l, zero)
         T_new = lie.se3_retract_split(T_B_W, delta_p)
         lms_new = lms + delta_l
-        sys_new, new_cost, r_sq_new = lin_sys(T_new, lms_new, mask,
-                                              lm_active)
+        asm, prior_t = assemble(T_new, lms_new, mask, cfg.chi2_gate)
+        sys_new, new_cost = system(asm.blocks, lm_active, prior_t)
         accept = ok_step & torch.isfinite(new_cost) & (new_cost < cost)
 
         mask_n, lm_active_n = mask, lm_active
         if cfg.chi2_gate > 0.0:
-            # The outlier gate of solve_ba (both branches computed, one
-            # selected); the final prior is built from the gated system.
+            # The outlier gate of solve_ba (both branches assembled in one
+            # pass, one selected); the final prior is built from the gated
+            # system.
             do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
-            m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
-            act = stereo_observability_mask(m, lm_valid)
-            m = m & act[None, None, :]
-            n_b, n_a = reduce(m.sum(), act.sum())
+            m, act = asm.gate_mask, asm.gate_active
+            n_b, n_a = reduce(asm.n_obs, asm.n_active)
             guard = ((n_b >= cfg.min_residual_blocks)
                      & (2 * n_b >= (W - 1) * 6 + 3 * n_a))
-            m = torch.where(guard, m, mask)
-            act = torch.where(guard, act, lm_active)
-            sys_g, cost_g, _ = lin_sys(T_new, lms_new, m, act)
-            mask_n = torch.where(do_gate, m, mask)
-            lm_active_n = torch.where(do_gate, act, lm_active)
-            sys_new = _sel(do_gate, sys_g, sys_new)
-            new_cost = torch.where(do_gate, cost_g, new_cost)
+            sys_g, cost_g = system(asm.gated, act, prior_t)
+            take = do_gate & guard
+            mask_n = torch.where(take, m, mask)
+            lm_active_n = torch.where(take, act, lm_active)
+            sys_new = _sel(take, sys_g, sys_new)
+            new_cost = torch.where(take, cost_g, new_cost)
         n_acc_n = n_acc + accept.to(torch.int32)
 
         cost_conv = accept & (torch.abs(cost - new_cost)
@@ -568,7 +534,7 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
 
     # The next prior: marginalize pose 0 of the system linearized at the
     # result (from the chi2-gated observation set when the gate is on).
-    sys_f, _, _ = lin_sys(lie.se3_inverse(T_W_B_out), lms_out, mask,
+    sys_f, _ = lin_sys(lie.se3_inverse(T_W_B_out), lms_out, mask,
                           lm_active)
     S_f, b_f, _, _ = damp_reduce(sys_f, 1e-5, lm_active)
     # b is -(gradient); marginalize_oldest takes the gradient.

@@ -50,7 +50,7 @@ import torch
 
 from .. import profiling
 from ..ops import cameras, lie, projection, pyramid
-from ..ops.cuda import klt_kernel
+from ..ops.cuda import ba_kernel, klt_kernel
 from ..ops.projection import triangulate_stereo
 from ..utils import graphs as graph_mod
 from ..utils.precision import pin_fp32
@@ -885,7 +885,8 @@ def make_estimator_split_step(cfg: EstimatorConfig, draws=gumbel_draws,
 # Kernel launch counters a replay carries over (utils.graphs.Graphs).
 KERNEL_COUNTERS = ((klt_kernel.klt_bidir, "launches"),
                    (klt_kernel.klt_bidir, "rot_launches"),
-                   (klt_kernel.klt_level, "launches"))
+                   (klt_kernel.klt_level, "launches"),
+                   (ba_kernel.ba_assemble, "launches"))
 
 
 class GraphStep:

@@ -26,10 +26,11 @@ Differences of form, same results, as in models/ba.py: a fixed-trip LM
 loop that freezes its carry once done (no host sync inside the solve), the
 chi^2 regate computed every iteration and selected on the device, and
 Cholesky / inverse failures carried as NaN (``cholesky_ex``, ``inv_ex``)
-where ``torch.linalg`` would raise. The regate re-masks the visual
-linearization it already has (the mask only zeroes terms of it) and
-reuses the iteration's IMU and prior terms, which do not depend on the
-mask: the same system JAX builds by linearizing again.
+where ``torch.linalg`` would raise. The regate's visual blocks come from
+the same ``ops.cuda.ba_kernel.ba_assemble`` pass as the iteration's (the
+mask only zeroes terms of the linearization), and it reuses the
+iteration's IMU and prior terms, which do not depend on the mask: the same
+system JAX builds by linearizing again.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import lie
+from ..ops.cuda.ba_kernel import ba_assemble
 from ..ops.projection import linearize_projection
 from . import ba as ba_mod
 from .imu import GRAVITY, Preintegrated, imu_residual
@@ -360,19 +362,15 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
               if prior is not None else None)
         return imu, pr
 
-    def linearize_visual(st: VIOState, lms, mask):
-        lin = ba_mod._linearize_all(lie.se3_inverse(st.T_W_B), T_C_B, lms,
-                                    obs, mask, cfg.huber_delta)
-        if obs_weight is not None:
-            lin = ba_mod.apply_obs_weights(lin, obs_weight)
-        return lin
+    def visual(st: VIOState, lms, mask, chi2_gate=0.0):
+        return ba_assemble(lie.se3_inverse(st.T_W_B), T_C_B, lms, obs, mask,
+                           obs_weight, lm_valid, cfg.huber_delta, chi2_gate)
 
-    def assemble(lin, terms, lm_active):
-        """The undamped system (H_ss (W,W,D,D), H_ll, H_pl6, g_s, g_l),
-        the total cost and the per-observation squared residuals."""
+    def assemble(b, terms, lm_active):
+        """The undamped system (H_ss (W,W,D,D), H_ll, H_pl6, g_s, g_l) and
+        the total cost, from the visual blocks b and the state terms."""
         (Hii, Hjj, Hij, gi, gj, imu_cost), pr = terms
-        H_pp6, H_ll, H_pl6, g_p6, g_l = ba_mod.build_normal_equations(lin)
-        H_pp6, g_p6, vis = reduce(H_pp6, g_p6, lin.cost.sum())
+        H_pp6, g_p6, vis = reduce(b.H_pp, b.g_p, b.cost)
         H_ss = torch.zeros((W, W, D, D), dtype=dtype, device=dev)
         H_ss[ar, ar, :6, :6] = H_pp6
         g_s = torch.zeros((W, D), dtype=dtype, device=dev)
@@ -390,10 +388,9 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
                 .reshape(W, D, W, D).permute(0, 2, 1, 3)
             g_s = (g_s.reshape(W * D) + g_add).reshape(W, D)
             cost = cost + pcost
-        g_l_m = torch.where(lm_active[:, None], g_l, zero)
-        H_pl6_m = torch.where(lm_active[None, :, None, None], H_pl6, zero)
-        return (H_ss, H_ll, H_pl6_m, g_s, g_l_m), cost, \
-            (lin.r ** 2).sum(-1)
+        g_l_m = torch.where(lm_active[:, None], b.g_l, zero)
+        H_pl6_m = torch.where(lm_active[None, :, None, None], b.H_pl, zero)
+        return (H_ss, b.H_ll, H_pl6_m, g_s, g_l_m), cost
 
     def block_diag(H_ss):
         return torch.clamp(torch.diagonal(H_ss[ar, ar], dim1=-2, dim2=-1),
@@ -426,8 +423,8 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         return (delta_s, delta_l, torch.isfinite(delta_s).all(),
                 torch.isfinite(delta_l).all() & (inv_ok | ~lm_active).all())
 
-    sys0, cost0, _ = assemble(linearize_visual(state, landmarks, mask0),
-                              state_terms(state), lm_active0)
+    sys0, cost0 = assemble(visual(state, landmarks, mask0).blocks,
+                           state_terms(state), lm_active0)
 
     st, lms, sys, cost = state, landmarks, sys0, cost0
     lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
@@ -452,9 +449,9 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         delta_l = torch.where(ok_step, delta_l, zero)
         st_new = _retract_state(st, delta_s)
         lms_new = lms + delta_l
-        lin = linearize_visual(st_new, lms_new, mask)
+        asm = visual(st_new, lms_new, mask, cfg.chi2_gate)
         terms = state_terms(st_new)
-        sys_new, new_cost, r_sq_new = assemble(lin, terms, lm_active)
+        sys_new, new_cost = assemble(asm.blocks, terms, lm_active)
         accept = ok_step & torch.isfinite(new_cost) & (new_cost < cost)
 
         mask_n, lm_active_n = mask, lm_active
@@ -462,24 +459,15 @@ def _solve(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
             # Visual outlier gate after chi2_gate_iter accepted iterations,
             # with the under-constraint guard; IMU and prior untouched.
             do_gate = accept & (n_acc + 1 == max(1, cfg.chi2_gate_iter))
-            m = mask & (r_sq_new <= cfg.chi2_gate ** 2)
-            act = ba_mod.stereo_observability_mask(m, lm_valid)
-            m = m & act[None, None, :]
-            n_b, n_a = reduce(m.sum(), act.sum())
+            n_b, n_a = reduce(asm.n_obs, asm.n_active)
             guard = ((n_b + n_imu >= cfg.min_residual_blocks)
                      & (2 * n_b + 15 * n_imu >= W * D - 6 + 3 * n_a))
-            m = torch.where(guard, m, mask)
-            act = torch.where(guard, act, lm_active)
-            mf = m.to(dtype)
-            lin_g = lin._replace(r=lin.r * mf[..., None],
-                                 J_pose=lin.J_pose * mf[..., None, None],
-                                 J_lm=lin.J_lm * mf[..., None, None],
-                                 cost=lin.cost * mf)
-            sys_g, cost_g, _ = assemble(lin_g, terms, act)
-            mask_n = torch.where(do_gate, m, mask)
-            lm_active_n = torch.where(do_gate, act, lm_active)
-            sys_new = ba_mod._sel(do_gate, sys_g, sys_new)
-            new_cost = torch.where(do_gate, cost_g, new_cost)
+            sys_g, cost_g = assemble(asm.gated, terms, asm.gate_active)
+            take = do_gate & guard
+            mask_n = torch.where(take, asm.gate_mask, mask)
+            lm_active_n = torch.where(take, asm.gate_active, lm_active)
+            sys_new = ba_mod._sel(take, sys_g, sys_new)
+            new_cost = torch.where(take, cost_g, new_cost)
         n_acc_n = n_acc + accept.to(torch.int32)
 
         cost_conv = accept & (torch.abs(cost - new_cost)

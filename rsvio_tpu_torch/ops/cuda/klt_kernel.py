@@ -116,10 +116,12 @@ def _route(device):
 
 @functools.lru_cache(maxsize=None)
 def load_library():
-    """Build (at first use) and load libklt_bidir; returns build.Built."""
+    """Build (at first use) and load the port's CUDA library: the KLT
+    kernels and the window solve's assembly (ba_kernel), one nvcc call;
+    returns build.Built."""
     from .build import build_library
 
-    built = build_library("klt_bidir", ["klt_bidir.cu"])
+    built = build_library("rsvio_cuda", ["klt_bidir.cu", "ba_assemble.cu"])
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     fn = built.lib.klt_bidir_launch
     fn.argtypes = [p, p, ll, p, p, p, p, p, p, i, i,

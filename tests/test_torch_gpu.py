@@ -1874,3 +1874,214 @@ def test_eval_harness_compiled_on_cuda_matches_eager(dev, profile):
         np.testing.assert_array_equal(res["compiled"].stats[f],
                                       res["eager"].stats[f])
     assert res["compiled"].ba_success_rate > 0
+
+
+# --------------------------------------------------------------------------
+# The window solve's visual assembly (K3, ops.cuda.ba_kernel)
+# --------------------------------------------------------------------------
+
+# Kernel vs plain version, relative to each output's largest magnitude: the
+# two take their sums (the matrix-vector products of a point's transform,
+# the block sums over observations, landmarks and blocks) in another order,
+# and the residual's cancellation (proj - obs) carries a few roundings of
+# the projection into it: float32 ~1e-6 of the scale, float64 ~1e-15.
+BA_REL = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+def _ba_window(dtype, dev, W=10, L=253, seed=1):
+    """tests/test_torch_ba_assemble's window (points behind the camera,
+    masked slots, an invalid slot, gated outliers, a landmark the gate
+    strips of one camera) at the solves' W and a ragged L, ~0.5 px of
+    noise, on `dev`."""
+    from test_torch_ba_assemble import _window
+    T_B_W, T_C_B, lms, obs, mask, valid, w = _window(dtype, W, L, seed)
+    gen = torch.Generator().manual_seed(seed)
+    obs = obs + (torch.randn(obs.shape, generator=gen, dtype=torch.float64)
+                 * 1e-3).to(dtype)
+    return [t.to(dev) for t in (T_B_W, T_C_B, lms, obs, mask, valid, w)]
+
+
+def _ba_close(a, b, rel):
+    if a is None:
+        assert b is None
+        return
+    if a.dtype in (torch.bool, torch.int64):
+        assert torch.equal(a, b)
+        return
+    scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
+    err = float((a - b).abs().max()) if b.numel() else 0.0
+    assert err <= rel * scale, (err, scale)
+
+
+def _ba_compare(got, want, rel):
+    for a, b in zip(got.blocks, want.blocks):
+        _ba_close(a, b, rel)
+    _ba_close(got.r_sq, want.r_sq, rel)
+    assert (got.gated is None) == (want.gated is None)
+    if got.gated is not None:
+        for a, b in zip(got.gated, want.gated):
+            _ba_close(a, b, rel)
+        for f in ("gate_mask", "gate_active", "n_obs", "n_active"):
+            _ba_close(getattr(got, f), getattr(want, f), rel)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", [0.0, 0.02], ids=["nogate", "gate"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weights"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_ba_assemble_kernel_matches_plain_version(dev, dtype, weighted, gate):
+    """K3 against ba_assemble_reference on the same CUDA tensors (BA_REL;
+    masks, counts equal), one call a launch; a second launch gives the
+    same bits (fixed-order sums, no atomics)."""
+    from rsvio_tpu_torch.ops.cuda import ba_kernel
+    T_B_W, T_C_B, lms, obs, mask, valid, w = _ba_window(dtype, dev)
+    args = (T_B_W, T_C_B, lms, obs, mask, w if weighted else None, valid,
+            0.05, gate)
+    before = ba_kernel.ba_assemble.launches
+    got = ba_kernel.ba_assemble(*args)
+    again = ba_kernel.ba_assemble(*args)
+    torch.cuda.synchronize()
+    assert ba_kernel.ba_assemble.launches == before + 2
+    want = ba_kernel.ba_assemble_reference(*args)
+    _ba_compare(got, want, BA_REL[dtype])
+    for a, b in zip(got, again):
+        if isinstance(a, tuple):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        elif a is not None:
+            assert torch.equal(a, b)
+    if gate > 0:
+        assert not bool(got.gate_active[2]) and int(got.n_active) > 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,L", [(16, 1), (16, 40), (2, 9)])
+def test_ba_assemble_kernel_window_limits(dev, W, L):
+    """The kernel's largest window (a warp's 32 lanes), a single landmark
+    (one block, seven idle warps) and a small window against the plain
+    version; one keyframe more than the kernel takes raises."""
+    from rsvio_tpu_torch.ops.cuda import ba_kernel
+    from rsvio_tpu_torch.parallel import dryrun
+    T_W_B, T_C_B, lms, obs, mask, valid = dryrun.window_problem(
+        W, L, seed=2, device=dev, dtype=torch.float32)
+    T_B_W = lie.se3_inverse(T_W_B)
+    got = ba_kernel.ba_assemble(T_B_W, T_C_B, lms, obs, mask, None, valid,
+                                2.0, 0.01)
+    want = ba_kernel.ba_assemble_reference(T_B_W, T_C_B, lms, obs, mask,
+                                           None, valid, 2.0, 0.01)
+    _ba_compare(got, want, BA_REL[torch.float32])
+    T_W_B, T_C_B, lms, obs, mask, valid = dryrun.window_problem(
+        17, 8, seed=2, device=dev, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        ba_kernel.ba_assemble(lie.se3_inverse(T_W_B), T_C_B, lms, obs, mask,
+                              None, valid, 2.0, 0.01)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("fn", ["solve_ba", "solve_ba_marginalized",
+                                "solve_vio_ba"])
+def test_window_solves_through_ba_assemble_match_cpu(dev, fn, dtype):
+    """The solves at the cells' shapes (W=10, L=256, gate 0.01308, weights)
+    through K3 on the card against the plain version on the CPU, at
+    tests/test_torch_solvers.py's tolerances: float32 poses within 1e-4,
+    landmarks 1e-3 relative; float64 the same iterations and status, poses
+    within 1e-9, metrics within 1e-6 relative (the gain ratio 1e-4). K3
+    runs once for the first system and once an LM iteration (fixed trip):
+    21 launches a solve_ba and a VIO solve, 22 a marginalized solve (the
+    next prior's system)."""
+    from rsvio_tpu_torch.models import marginalization as mg
+    from rsvio_tpu_torch.models import vio_ba
+    from rsvio_tpu_torch.ops.cuda import ba_kernel
+    from rsvio_tpu_torch.parallel import dryrun
+
+    gen = torch.Generator().manual_seed(3)
+    problem = (dryrun.vio_window_problem if fn == "solve_vio_ba"
+               else dryrun.window_problem)
+    args = list(problem(10, 256, seed=1, device="cpu", dtype=dtype))
+    obs = args[3] + (torch.randn(args[3].shape, generator=gen,
+                                 dtype=torch.float64) * 1e-3).to(dtype)
+    obs[4, 1, :6] += 0.05
+    args[3] = obs
+    w = (0.5 + torch.rand((10, 256), generator=gen,
+                          dtype=torch.float64)).to(dtype)
+    res, launches = {}, {}
+    for d in (torch.device("cpu"), dev):
+        a = [_to(x, d) for x in args]
+        before = ba_kernel.ba_assemble.launches
+        if fn == "solve_ba":
+            r = ba_mod.solve_ba(*a, ba_mod.BAConfig(chi2_gate=0.01308),
+                                obs_weight=w.to(d))
+            pose = r.T_W_B
+        elif fn == "solve_ba_marginalized":
+            r, _ = ba_mod.solve_ba_marginalized(
+                *a, mg.empty_prior(10, 6, dtype, d),
+                torch.ones((), dtype=torch.bool, device=d),
+                ba_mod.BAConfig(chi2_gate=0.01308), obs_weight=w.to(d))
+            pose = r.T_W_B
+        else:
+            r = vio_ba.solve_vio_ba(*a, cfg=vio_ba.VIOBAConfig(
+                chi2_gate=0.01308), obs_weight=w.to(d))
+            pose = r.state.T_W_B
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        launches[d.type] = ba_kernel.ba_assemble.launches - before
+        res[d.type] = (r, pose.cpu(), r.landmarks.cpu(), r.metrics.cpu())
+    assert launches == {"cpu": 0, "cuda": 22 if fn.endswith("ized") else 21}
+    (rc, pc, lc, mc), (rg, pg, lg, mg_) = res["cpu"], res["cuda"]
+    assert bool(rc.success) and bool(rg.success)
+    if dtype == torch.float32:
+        assert float((pg - pc).abs().max()) <= 1e-4
+        assert float((lg - lc).abs().max()) <= 1e-3 * float(lc.abs().max())
+    else:
+        assert int(rc.iterations) == int(rg.iterations)
+        assert int(rc.status) == int(rg.status)
+        assert float((pg - pc).abs().max()) <= 1e-9
+        cols = [0, 1, 2, 3, 5]
+        np.testing.assert_allclose(mg_[:, cols].numpy(), mc[:, cols].numpy(),
+                                   rtol=1e-6, atol=1e-12)
+        np.testing.assert_allclose(mg_[:, 4].numpy(), mc[:, 4].numpy(),
+                                   rtol=1e-4, atol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["vo", "vio"])
+def test_compiled_steps_with_ba_assemble_bitwise_eager(dev, kind):
+    """The compiled VO and VIO steps (K3 inside their graphs, its launches
+    carried over replays) against the eager steps over 30 frames of the
+    small scene with the chi^2 gate and the observation weights on: poses
+    bit for bit, and as many K3 calls, at least one solve's."""
+    from rsvio_tpu_torch.models import estimator_vio as ev
+    from rsvio_tpu_torch.ops.cuda import ba_kernel
+
+    base, frames, shape = _small_scene(30)
+    base = base._replace(ba=base.ba._replace(chi2_gate=0.02),
+                         use_obs_weights=True)
+    rig = bench_scene.make_rig(dev, shape=shape, fx=100.0)
+    frames_d = [(a.to(dev), b.to(dev)) for a, b in frames]
+    poses, launches = {}, {}
+    for name in ("eager", "compiled"):
+        if kind == "vo":
+            step = (est.make_compiled_estimator_step(base, device=dev)
+                    if name == "compiled" else est.make_estimator_step(base))
+            state = est.init_state(base, device=dev)
+        else:
+            cfg = _vio_cfg(base)
+            cfg = cfg._replace(vio=cfg.vio._replace(chi2_gate=0.02))
+            step = (ev.make_compiled_vio_estimator_step(cfg, device=dev)
+                    if name == "compiled" else ev.make_vio_estimator_step(cfg))
+            state = ev.init_vio_state(cfg, device=dev)
+        torch.cuda.synchronize()
+        before = ba_kernel.ba_assemble.launches
+        poses[name] = []
+        for a, b in frames_d:
+            extra = _hover_imu() if kind == "vio" else ()
+            state, out = step(state, rig, a, b, *extra)
+            poses[name].append(out.T_W_B.clone())
+        torch.cuda.synchronize()
+        launches[name] = ba_kernel.ba_assemble.launches - before
+    assert launches["compiled"] == launches["eager"] >= 21, launches
+    for k, (pe, pc) in enumerate(zip(poses["eager"], poses["compiled"])):
+        assert torch.equal(pe, pc), (k, float((pe - pc).abs().max()))
