@@ -225,9 +225,12 @@ def gumbel_draws(frame_id: int, shape, dtype, device):
     """The RANSAC gate's Gumbel(0, 1) draws for one frame: -log of
     exponential draws from a CPU generator seeded by (RANSAC_SEED,
     frame_id). Deterministic on replay, the same numbers for a step on the
-    CPU and on the card, and copied to `device` without a stream sync.
-    (The JAX package draws from a threefry key folded with the frame id,
-    which torch cannot reproduce; tests pass JAX's draws instead.)"""
+    CPU and on the card. The eager steps ask for them on the step's device
+    (read_motion_branch: a non-blocking copy from pageable memory); the
+    compiled steps on the CPU, and GraphStep._stage_draws copies them to
+    the card through pinned memory. (The JAX package draws from a threefry
+    key folded with the frame id, which torch cannot reproduce; tests pass
+    JAX's draws instead.)"""
     gen = torch.Generator().manual_seed((RANSAC_SEED << 32) | frame_id)
     e = torch.empty(shape, dtype=torch.float64).exponential_(generator=gen)
     return (-torch.log(e)).to(dtype).to(device, non_blocking=True)
@@ -917,8 +920,10 @@ class GraphStep:
     (attributes: ``step``, this step's `tag`; ``frame``, the mirrored frame
     id; ``ready``, PnP runs; ``is_kf``; ``solve``) and inside it
     ``step.load`` (the inputs, the draws and the IMU buffer into their
-    buffers), ``step.read`` (the wait for is_kf) and ``step.emit``, besides
-    utils.graphs.Graphs' ``graph.replay`` / ``graph.capture``. On CUDA it
+    buffers; inside it, with the RANSAC gate, ``step.draws`` with the
+    ``frame``: the draws made and staged), ``step.read`` (the wait for
+    is_kf) and ``step.emit``, besides utils.graphs.Graphs'
+    ``graph.replay`` / ``graph.capture``. On CUDA it
     records a timing event on its stream before and after each replay and
     reads them as ``graph.device`` and ``stream.gap`` records
     (profiling.DeviceSpans) with the variant's ``key`` and its ``layer``:
@@ -1000,18 +1005,20 @@ class GraphStep:
 
     def _stage_draws(self, frame_id: int):
         """The gate's draws for `frame_id` into the fixed device buffer: made
-        on the host, copied on the stream from pinned memory."""
-        n = self._in.tree.lm.shape[0]
-        dtype = self._in.tree.T_W_B.dtype
-        g = self.draws(frame_id, (self.cfg.pnp.ransac_hypotheses, 2 * n),
-                       dtype, torch.device("cpu"))
-        if self._gumbel is None:
-            self._gumbel = torch.empty(g.shape, dtype=dtype,
-                                       device=self.device)
-            self._gumbel_host = torch.empty(g.shape, dtype=dtype,
-                                            pin_memory=self.pinned)
-        self._gumbel_host.copy_(g)
-        self._gumbel.copy_(self._gumbel_host, non_blocking=True)
+        on the host, copied on the stream from pinned memory (the
+        ``step.draws`` span while the tracer is on)."""
+        with profiling.span("step.draws", frame=frame_id):
+            n = self._in.tree.lm.shape[0]
+            dtype = self._in.tree.T_W_B.dtype
+            g = self.draws(frame_id, (self.cfg.pnp.ransac_hypotheses, 2 * n),
+                           dtype, torch.device("cpu"))
+            if self._gumbel is None:
+                self._gumbel = torch.empty(g.shape, dtype=dtype,
+                                           device=self.device)
+                self._gumbel_host = torch.empty(g.shape, dtype=dtype,
+                                                pin_memory=self.pinned)
+            self._gumbel_host.copy_(g)
+            self._gumbel.copy_(self._gumbel_host, non_blocking=True)
 
     def _keep_mid(self, seg, is_kf):
         """Inside the first segment: its results into their buffer, is_kf
@@ -1056,6 +1063,20 @@ class GraphStep:
             return new_state, frame_out
 
 
+# The consensus gate's device counters (profiling.counter "pnp_gate"),
+# summed over the frames the gate ran on: the frames, those it won
+# (ransac_ok), the winning consensus sizes and the candidate observations
+# on won frames, and the tracks excised.
+GATE_FIELDS = ("frames", "won", "inliers", "candidates", "killed")
+
+
+def gate_counts(mo: MotionOut):
+    """One gated frame's GATE_FIELDS, (5,) int64 on the device."""
+    won = mo.ransac_ok.to(torch.int64)
+    return torch.stack([torch.ones_like(won), won, won * mo.n_inliers,
+                        won * mo.n_pnp, mo.kill.sum(dtype=torch.int64)])
+
+
 class CompiledStep(GraphStep):
     """The per-frame step as CUDA graphs: the port's counterpart of
     ``jax.jit(step)`` (make_compiled_estimator_step builds it; called as
@@ -1071,13 +1092,21 @@ class CompiledStep(GraphStep):
     (GraphStep). The mirror is read from the state once whenever the step
     is handed a state it did not return last (a first call, a checkpoint's
     state): one more blocking read then. `segments`: the eager step's
-    (make_estimator_step's `segments`)."""
+    (make_estimator_step's `segments`).
+
+    With the RANSAC gate on, segment M's gated variant ends by adding the
+    frame's gate_counts to `gate_counts`, a profiling.counter of group
+    "pnp_gate" (GATE_FIELDS) that outlives the step; with it off no counter
+    is made and no variant holds the add."""
 
     def __init__(self, cfg: EstimatorConfig, draws, device,
                  segments: Segments, counters=()):
         super().__init__(cfg, draws, device, "make_compiled_estimator_step",
                          counters)
         self._sg = segments
+        self.gate_counts = (
+            profiling.counter("pnp_gate", GATE_FIELDS, self.device)
+            if cfg.pnp.ransac_hypotheses > 0 else None)
 
     def _motion(self, ready: bool):
         gate = ready and self.cfg.pnp.ransac_hypotheses > 0
@@ -1087,6 +1116,8 @@ class CompiledStep(GraphStep):
                                   *self._img.tree, ready,
                                   self._gumbel if gate else None)
             self._keep_mid(seg, seg.mo.is_kf)
+            if gate:
+                self.gate_counts.add_(gate_counts(seg.mo))
         return fn
 
     def _opt(self, is_kf: bool, solve: bool):

@@ -21,6 +21,13 @@ reference's [Timing] log line (ref src/estimator/estimator.rs:108-122,
   the device's clock, with the replay's attributes and no place on the
   host's clock.
 
+- ``counter(group, fields, device)``: a device buffer of int64 sums that a
+  compiled step adds to inside its graphs (one in-place add, no host
+  read), registered here so that it outlives the step; ``counter_sums()``
+  reads every registered buffer once and gives each field's sum over them
+  as ``"<group>.<field>"``. Counters count whether the tracer is on or
+  off.
+
 The tracer is on while ``torch.autograd.profiler._is_profiler_enabled``
 (a profiler session records, on any thread) or inside ``recording()``.
 Off, a span costs a flag read and returns one shared null context: nothing
@@ -92,8 +99,9 @@ class _Buffer:
         self.added += 1
 
 
-_lock = threading.Lock()        # guards _buffers and _recording
+_lock = threading.Lock()        # guards _buffers, _counters, _recording
 _buffers = []
+_counters = []      # (group, fields, int64 buffer) of every counter made
 _local = threading.local()
 _recording = 0
 _ids = itertools.count(1)
@@ -213,13 +221,46 @@ def records() -> Records:
 
 
 def clear():
-    """Empty every buffer; forget those of threads that have ended."""
+    """Empty every buffer; forget those of threads that have ended. Zero
+    every counter (in place: a step goes on adding to its own)."""
     with _lock:
         _buffers[:] = [b for b in _buffers if b.owner.is_alive()]
         for b in _buffers:
             b.spans.clear()
             b.device.clear()
             b.added = b.reported = 0
+        for _, _, buf in _counters:
+            buf.zero_()
+
+
+def counter(group: str, fields: tuple, device) -> torch.Tensor:
+    """A new zeroed int64 buffer of len(fields) sums on `device`, registered
+    under `group` for the life of the process; its maker adds to it in
+    place."""
+    buf = torch.zeros(len(fields), dtype=torch.int64, device=device)
+    with _lock:
+        _counters.append((group, tuple(fields), buf))
+    return buf
+
+
+def counter_sums() -> dict:
+    """Every registered counter's sums, added over the buffers of a group
+    (one per step that made it), as {"<group>.<field>": int}, read once
+    every device has finished the work queued so far. Empty when no counter
+    was made. The sums cover every step this process made since the last
+    clear(), warm-up's frames included: a process that runs several
+    configurations or runs one after another mixes their counts unless it
+    calls clear() between them, once their steps' queued work is done."""
+    with _lock:
+        regs = list(_counters)
+    for d in {buf.device for _, _, buf in regs if buf.device.type == "cuda"}:
+        torch.cuda.synchronize(d)
+    out = {}
+    for group, fields, buf in regs:
+        for f, v in zip(fields, buf.tolist()):
+            key = f"{group}.{f}"
+            out[key] = out.get(key, 0) + v
+    return out
 
 
 def report() -> str:
